@@ -10,7 +10,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build   -- builds the cached-substep forward kernel (K1) and its adjoint
               kernel (K2) from csrc/ with nvcc for sm_90a, one nvcc process
               per library, all started together: seconds, registers per
-              thread, spill and stack bytes.
+              thread, spill and stack bytes; threads per env, envs per
+              block, shared memory per block, and the blocks and warps
+              resident per SM at E = 4096 (the card's occupancy query and
+              the grid; fails under 4 warps).
 3. kernel  -- Ant at E = 4096: one cached substep, K1 against its plain
               version substep_lb (q rtol 2e-5 atol 2e-6, qd rtol 2e-5
               atol 2e-5), and one whole env step (16 substeps, mass matrix
@@ -44,8 +47,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
               random-action env-steps/s.
 
 Before the last line it prints the nvidia-smi line and one JSON line with
-the kernels' launches (in the training path), errors and times; the last
-line is {"ok": true, "device": {...}}.
+the kernels' launches (in the training path), errors, times, threads per
+env and warps per SM; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -264,13 +267,26 @@ def main() -> int:
     kern = sk.prepare_substep_forward(model, dev, built=built)
     vkern = sk.prepare_substep_vjp(model, dev, built=vbuilt)
     sk.prepare_substep_forward(pmodel, dev, built=pbuilt)
+    occupancy = {}
     for b, k in ((built, kern), (vbuilt, vkern)):
-        regs, local = sk.kernel_attributes(k)
+        a = sk.kernel_attributes(k)
+        blocks, warps = a.resident(E)
+        occupancy[b.name] = (a.threads_per_env, warps)
         phase("build", f"{b.name} for Ant: {b.seconds:.2f} s nvcc (all "
               f"builds together), ptxas {b.registers} registers, "
               f"{b.spill_store_bytes} B spill stores, "
               f"{b.spill_load_bytes} B spill loads, {b.stack_bytes} B "
-              f"stack; loaded: {regs} registers, {local} B local per thread")
+              f"stack; loaded: {a.registers} registers, {a.local_bytes} B "
+              f"local per thread")
+        phase("build", f"{b.name} occupancy: {a.threads_per_env} threads "
+              f"per env, {a.envs_per_block} envs per block, "
+              f"{a.smem_bytes} B shared memory per block, at most "
+              f"{a.max_blocks_per_sm} blocks per SM; at E={E} "
+              f"{-(-E // a.envs_per_block)} blocks over {a.sm_count} SMs: "
+              f"{blocks:.3f} blocks and {warps:.3f} warps resident per SM")
+        if warps < 4.0:
+            raise RuntimeError(f"{b.name}: {warps:.3f} warps per SM at "
+                               f"E={E}, fewer than 4")
 
     # 3. kernel against its plain version, both on the card
     h = env.dt / env.sim_substeps
@@ -625,6 +641,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "threads_per_env": occupancy["substep_forward"][0],
+        "warps_per_sm": occupancy["substep_forward"][1],
     }, {
         "name": "substep_vjp",
         "route": "cuda",
@@ -637,6 +655,8 @@ def main() -> int:
         "bound_ms": vbound_ms,
         "bound_by": "bytes" if vt_bytes >= vt_ops else "operations",
         "library_ms": None,
+        "threads_per_env": occupancy["substep_vjp"][0],
+        "warps_per_sm": occupancy["substep_vjp"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

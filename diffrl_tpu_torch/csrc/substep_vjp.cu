@@ -3,11 +3,16 @@
 // itself is in substep_vjp.cuh.
 #include <cuda_runtime.h>
 
+#include "kernel_host.cuh"
 #include "substep_vjp.cuh"
 
 namespace {
-// One warp per block, as the forward kernel: at E = 4096, 128 blocks.
-constexpr int kThreads = 32;
+// kEnvsPerBlock env slots and the constants per block (Ant: 16 envs of 8
+// threads, 102.6 KB, so two blocks share an SM)
+constexpr int kSmemBytes =
+    (drl::kEnvsPerBlock * drl::kVjpEnvWords + drl::kConstCount) *
+    static_cast<int>(sizeof(float));
+static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
 }  // namespace
 
 extern "C" {
@@ -21,22 +26,19 @@ int drl_substep_vjp(const float* q, const float* qd, const float* joint_act,
                     const float* consts, float* dq, float* dqd, float* dja,
                     float* dh, int E, float dt, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (E + kThreads - 1) / kThreads;
-  drl::substep_vjp_kernel<<<blocks, kThreads, 0,
+  cudaError_t err = drl::allow_smem(drl::substep_vjp_kernel, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (E + drl::kEnvsPerBlock - 1) / drl::kEnvsPerBlock;
+  drl::substep_vjp_kernel<<<blocks, drl::kBlockThreads, kSmemBytes,
                             static_cast<cudaStream_t>(stream)>>>(
       q, qd, joint_act, hinv, gq, gqd, consts, dq, dqd, dja, dh, E, dt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill + stack) bytes per thread of the
-// kernel as loaded on the current device; returns the cudaError_t.
-int drl_substep_vjp_attributes(int* num_regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, drl::substep_vjp_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *num_regs = attr.numRegs;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return 0;
+// out[0..6] as drl::kernel_attributes (kernel_host.cuh) says; returns the
+// cudaError_t.
+int drl_substep_vjp_attributes(int* out) {
+  return drl::kernel_attributes(drl::substep_vjp_kernel, kSmemBytes, out);
 }
 
 }  // extern "C"

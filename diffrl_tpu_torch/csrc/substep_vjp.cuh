@@ -1,4 +1,5 @@
-// VJP of one cached articulation substep per env, one thread per env.
+// VJP of one cached articulation substep per env, a team of T threads per
+// env.
 //
 // Replaces the TPU kernel substep_vjp_batched
 // (diffrl_tpu/sim/pallas_substep.py), which traced jax.vjp of the substep
@@ -16,19 +17,24 @@
 //   forward's index order), adj_tau = lam, dH = -lam qdd^T, Hinv frozen.
 //   H itself is never read.
 //
-// Pass structure, per thread: recompute the forward (the shared stages of
-// substep_forward.cuh) keeping link frames, twists, accelerations, motion
-// subspaces, subtree wrenches and qdd; then sweep backward: integrate ->
-// solve -> torques -> subtree sums -> contacts -> inverse dynamics and fk,
-// link by link from the leaves to the root.
+// Pass structure: recompute the forward with the phases of
+// substep_forward.cuh (frames, twists, accelerations, motion subspaces,
+// subtree wrenches and qdd stay in the env's shared-memory slot); then
+// sweep backward: integrate -> solve -> torques and dH -> subtree sums ->
+// contacts -> each link's wrench -> inverse dynamics and fk, level by level
+// from the leaves to the root.
 //
 // What bounds it: per env it reads q, qd, joint_act, Hinv, gq and gqd once
 // (Ant: 268 floats) and writes dq, dqd, djoint_act and dH once (239 floats);
-// the arithmetic is roughly three times the forward's. The forward
-// intermediates and their adjoints (several hundred floats per env) do not
-// fit in 255 registers, so part of them lives in local memory (L1/L2
-// backed). Global accesses are coalesced as in the forward kernel
-// (k * E + e).
+// the arithmetic is roughly three times the forward's. The design is the
+// forward kernel's: a team of T lanes per env, every intermediate and every
+// adjoint in the env's shared-memory slot (kVjpEnvWords floats), global
+// I/O staged through shared memory by the whole block. The lanes split the
+// links of a level, the contacts, the rows of Hinv adj_qdd and the entries
+// of dH. What a link passes to its parent (acceleration, twist and frame
+// adjoints) goes to its own slot, and the parent's lane adds its children's
+// after the level's sync, in descending row order: no atomics, so two
+// launches give the same bits.
 #pragma once
 
 #include "substep_forward.cuh"
@@ -235,271 +241,380 @@ __device__ __forceinline__ void adj_contact(const float* cc, Xform X, SV v6,
   adj_qrot(X.q, pt, ap, aX.q, apt);
 }
 
+// K2's fields of an env slot, after the forward's (fw::)
+namespace bw {
+constexpr int gq = fw::end;      // cotangent of q' [NC]
+constexpr int gqd = gq + NC;     // cotangent of qd' [ND]
+constexpr int aq = gqd + ND;     // dq [NC]
+constexpr int aqd = aq + NC;     // dqd [ND]
+constexpr int aqdd = aqd + ND;   // [ND]
+constexpr int atau = aqdd + ND;  // lam = Hinv adj_qdd [ND]
+constexpr int dja = atau + ND;   // djoint_act [ND]
+constexpr int aF = dja + ND;     // wrench adjoints [NL][6]
+constexpr int aS = aF + 6 * NL;  // motion-subspace adjoints [NL][6]
+constexpr int aX = aS + 6 * NL;  // link-frame adjoints [NL][7]
+constexpr int avel = aX + 7 * NL;   // twist adjoints [NL][6]
+constexpr int aacc = avel + 6 * NL;  // acceleration adjoints [NL][6]
+constexpr int cX = aacc + 6 * NL;   // per contact: its link's frame [NK][7]
+constexpr int cv = cX + 7 * NK;     // and twist [NK][6] adjoints
+constexpr int pX = cv + 6 * NK;     // per link, to its parent: frame [NL][7],
+constexpr int pvel = pX + 7 * NL;   // twist [NL][6] and
+constexpr int pacc = pvel + 6 * NL;  // acceleration [NL][6] adjoints
+constexpr int end = pacc + 6 * NL;
+}  // namespace bw
+
+constexpr int kVjpEnvWords = odd_words(bw::end);
+static_assert(kVjpEnvWords == DRL_VJP_ENV_WORDS,
+              "the adjoint slot differs from kernel_tables' layout");
+
+// integrate: q' = q + qd' dt, qd' = qd + qdd dt (free joints: position by
+// the spatial twist, rotation by qmul and qnormalize); the first adjoint of
+// link r's coordinates, so it assigns aq and aqd
+__device__ __forceinline__ void link_integrate_adj(float* s, int r, float dt) {
+  const int qs = link_qstart(r), ds = link_dstart(r);
+  const float* qv = s + fw::q + qs;
+  const float* qdv = s + fw::qd + ds;
+  const float* qdd = s + fw::qdd + ds;
+  const float* gq = s + bw::gq + qs;
+  const float* gqd = s + bw::gqd + ds;
+  float* aq = s + bw::aq + qs;
+  float* aqd = s + bw::aqd + ds;
+  float* aqdd = s + bw::aqdd + ds;
+  if (link_type(r) == kFree) {
+    const V3 w_s = V3{qdv[0], qdv[1], qdv[2]} + V3{qdd[0], qdd[1], qdd[2]} * dt;
+    const V3 p_s = {qv[0], qv[1], qv[2]};
+    const Quat r_s = {qv[3], qv[4], qv[5], qv[6]};
+    const Quat wq = {w_s.x, w_s.y, w_s.z, 0.0f};
+    const Quat dr = qmul(wq, r_s);
+    const Quat u = {r_s.x + dr.x * 0.5f * dt, r_s.y + dr.y * 0.5f * dt,
+                    r_s.z + dr.z * 0.5f * dt, r_s.w + dr.w * 0.5f * dt};
+    const V3 gp = {gq[0], gq[1], gq[2]};
+    const Quat gr = {gq[3], gq[4], gq[5], gq[6]};
+    V3 aw_s = {gqd[0], gqd[1], gqd[2]};
+    V3 av_s = {gqd[3], gqd[4], gqd[5]};
+    // r_n = qnormalize(r_s + dr * 0.5 * dt), dr = qmul(wq, r_s)
+    Quat ar_s = adj_qnormalize(u, gr);
+    const Quat adr = {ar_s.x * 0.5f * dt, ar_s.y * 0.5f * dt,
+                      ar_s.z * 0.5f * dt, ar_s.w * 0.5f * dt};
+    Quat awq = {0.0f, 0.0f, 0.0f, 0.0f};
+    adj_qmul(wq, r_s, adr, awq, ar_s);
+    aw_s += V3{awq.x, awq.y, awq.z};
+    // p_n = p_s + (v_s + cross(w_s, p_s)) dt
+    V3 ap_s = gp;
+    const V3 adpdt = gp * dt;
+    av_s += adpdt;
+    adj_cross(w_s, p_s, adpdt, aw_s, ap_s);
+    // w_s = w + qdd_w dt, v_s = v + qdd_v dt
+    store_xform(aq, Xform{ap_s, ar_s});
+    store_sv(aqd, SV{aw_s, av_s});
+    store_sv(aqdd, SV{aw_s, av_s} * dt);
+  } else {  // revolute / prismatic
+    const float gq_j = gq[0];
+    const float aqd_n = gqd[0] + gq_j * dt;
+    aq[0] = gq_j;
+    aqd[0] = aqd_n;
+    aqdd[0] = aqd_n * dt;
+  }
+}
+
+// joint torques of link r: its wrench adjoint aF (before the subtree
+// sums), its motion-subspace adjoint aS, djoint_act and the gain and limit
+// terms of aq, aqd
+__device__ __forceinline__ void link_torque_adj(const float* P, float* s,
+                                                int r) {
+  const float* c = P + r * kLinkStride;
+  const int qs = link_qstart(r);
+  const int ds = link_dstart(r);
+  const float* atau = s + bw::atau + ds;
+  float* dja = s + bw::dja + ds;
+  if (link_type(r) == kFree) {
+    store_sv(s + bw::aF + 6 * r, SV{{-atau[0], -atau[1], -atau[2]},
+                                    {-atau[3], -atau[4], -atau[5]}});
+    store_sv(s + bw::aS + 6 * r, kZeroSV);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) dja[k] = 0.0f;
+  } else {
+    const float at = atau[0];
+    const float qj = s[fw::q + qs];
+    store_sv(s + bw::aF + 6 * r, load_sv(s + fw::S + 6 * r) * (-at));
+    store_sv(s + bw::aS + 6 * r, load_sv(s + fw::frc + 6 * r) * (-at));
+    float aqj = -c[kTargetKe] * at;
+    if (qj < c[kLower] || qj > c[kUpper]) aqj += -c[kLimitKe] * at;
+    s[bw::aq + qs] += aqj;
+    s[bw::aqd + ds] += -c[kTargetKd] * at - c[kLimitKd] * at;
+    dja[0] = at;
+  }
+}
+
+// ground contact k: the adjoints of its link's frame and twist, from the
+// link's final wrench adjoint, to the contact's own slots
+__device__ __forceinline__ void contact_adj(const float* P, float* s,
+                                            int k) {
+  const int row = contact_row(k);
+  Xform aX = kZeroX;
+  SV av6 = kZeroSV;
+  adj_contact(P + kContact0 + k * kContactStride,
+              load_xform(s + fw::X + 7 * row), load_sv(s + fw::vel + 6 * row),
+              load_sv(s + bw::aF + 6 * row), aX, av6);
+  store_xform(s + bw::cX + 7 * k, aX);
+  store_sv(s + bw::cv + 6 * k, av6);
+}
+
+// link r's body wrench, frc = Ia + scross_dual(vel, Iv) - f_g with
+// f_g = {cross(X_sm.p, gm), gm}: the adjoints of its frame, twist and
+// acceleration, on top of its contacts' (in contact order)
+__device__ __forceinline__ void body_wrench_adj(const float* P, float* s,
+                                                int r) {
+  const float* c = P + r * kLinkStride;
+  Xform aX = kZeroX;
+  SV avel = kZeroSV, aacc = kZeroSV;
+  if (NK > 0) {
+    for (int i = link_contact_start(r); i < link_contact_start(r + 1); ++i) {
+      const int k = link_contact(i);
+      aX += load_xform(s + bw::cX + 7 * k);
+      avel += load_sv(s + bw::cv + 6 * k);
+    }
+  }
+  const Xform X_sc = load_xform(s + fw::X + 7 * r);
+  const Xform X_cm = load_xform(c + kXcm);
+  const float m = c[kMass];
+  const Xform X_sm = tmul(X_sc, X_cm);
+  const SV vel = load_sv(s + fw::vel + 6 * r);
+  const SV g = load_sv(s + bw::aF + 6 * r);
+  Xform aX_sm = kZeroX;
+  adj_inertia_matvec(X_sm, c + kI3, m, load_sv(s + fw::acc + 6 * r), g,
+                     aX_sm, aacc);
+  const SV Iv = inertia_matvec(X_sm, c + kI3, m, vel);
+  SV aIv = kZeroSV;
+  adj_scross_dual(vel, Iv, g, avel, aIv);
+  adj_inertia_matvec(X_sm, c + kI3, m, vel, aIv, aX_sm, avel);
+  V3 agm = kZero3;
+  adj_cross(X_sm.p, load3(P + kGravity) * m, neg(g.w), aX_sm.p, agm);
+  Xform dummyX = kZeroX;
+  adj_tmul(X_sc, X_cm, aX_sm, aX, dummyX);
+  store_xform(s + bw::aX + 7 * r, aX);
+  store_sv(s + bw::avel + 6 * r, avel);
+  store_sv(s + bw::aacc + 6 * r, aacc);
+}
+
+// link r's twist, acceleration and frame recursions, once its children's
+// level has run: add what each child passed up (descending row order), then
+// take the adjoints of v_j, S, X_sj and X_sc = tmul(X_sc[pr], tmul(X_pj,
+// X_jc)); what belongs to the parent goes to r's p* slots
+__device__ __forceinline__ void link_reverse(const float* P, float* s,
+                                             int r) {
+  const Xform kIdentity = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 1.0f}};
+  const float* c = P + r * kLinkStride;
+  const int ty = link_type(r);
+  const int pr = link_parent(r);
+  const int qs = link_qstart(r);
+  const int ds = link_dstart(r);
+  Xform aX = load_xform(s + bw::aX + 7 * r);
+  SV avel = load_sv(s + bw::avel + 6 * r);
+  SV aacc = load_sv(s + bw::aacc + 6 * r);
+  for (int i = child_start(r); i < child_start(r + 1); ++i) {
+    const int ch = child(i);
+    aacc += load_sv(s + bw::pacc + 6 * ch);
+    avel += load_sv(s + bw::pvel + 6 * ch);
+    aX += load_xform(s + bw::pX + 7 * ch);
+  }
+  const float* qv = s + fw::q + qs;
+  const float* qdv = s + fw::qd + ds;
+  const Xform X_pj = load_xform(c + kXpj);
+  const V3 axis = load3(c + kAxis);
+  const Xform X_p = pr < 0 ? kIdentity : load_xform(s + fw::X + 7 * pr);
+  Xform dummyX = kZeroX;
+  Xform aX_p = kZeroX;  // cotangent of the parent's frame
+
+  // v_j, then acc = acc[pr] + scross(vel, v_j), vel = vel[pr] + v_j
+  const Xform X_sj = pr < 0 ? tmul(kIdentity, X_pj) : tmul(X_p, X_pj);
+  const SV Sr = load_sv(s + fw::S + 6 * r);
+  SV v_j;
+  if (ty == kFree) {
+    v_j = {{qdv[0], qdv[1], qdv[2]}, {qdv[3], qdv[4], qdv[5]}};
+  } else {
+    v_j = Sr * qdv[0];
+  }
+  SV avj = kZeroSV;
+  if (pr < 0) {
+    adj_scross(v_j, v_j, aacc, avj, avj);
+  } else {
+    store_sv(s + bw::pacc + 6 * r, aacc);
+    adj_scross(load_sv(s + fw::vel + 6 * r), v_j, aacc, avel, avj);
+    store_sv(s + bw::pvel + 6 * r, avel);
+  }
+  avj += avel;
+  float* aq = s + bw::aq + qs;
+  float* aqd = s + bw::aqd + ds;
+  if (ty == kFree) {
+    aqd[0] += avj.w.x;
+    aqd[1] += avj.w.y;
+    aqd[2] += avj.w.z;
+    aqd[3] += avj.v.x;
+    aqd[4] += avj.v.y;
+    aqd[5] += avj.v.z;
+  } else {
+    const SV aS = load_sv(s + bw::aS + 6 * r) + avj * qdv[0];
+    aqd[0] += dot(Sr, avj);
+    // S from X_sj: revolute {w, cross(p, w)} with w = qrot(q, axis),
+    // prismatic {0, qrot(q, axis)}
+    Xform aX_sj = kZeroX;
+    V3 aaxis = kZero3;
+    if (ty == kRevolute) {
+      const V3 w = qrot(X_sj.q, axis);
+      V3 aw = aS.w;
+      adj_cross(X_sj.p, w, aS.v, aX_sj.p, aw);
+      adj_qrot(X_sj.q, axis, aw, aX_sj.q, aaxis);
+    } else {
+      adj_qrot(X_sj.q, axis, aS.v, aX_sj.q, aaxis);
+    }
+    if (pr >= 0) adj_tmul(X_p, X_pj, aX_sj, aX_p, dummyX);
+  }
+
+  // X_sc = tmul(X_sc[pr], X_local), X_local = tmul(X_pj, X_jc)
+  Xform X_jc = kIdentity;
+  float half = 0.0f;
+  if (ty == kPrismatic) {
+    X_jc.p = axis * qv[0];
+  } else if (ty == kRevolute) {
+    half = qv[0] * 0.5f;
+    const V3 sn = axis * sinf(half);
+    X_jc.p = kZero3;
+    X_jc.q = {sn.x, sn.y, sn.z, cosf(half)};
+  } else {
+    X_jc = {{qv[0], qv[1], qv[2]}, {qv[3], qv[4], qv[5], qv[6]}};
+  }
+  Xform aX_local = kZeroX;
+  if (pr < 0) {
+    aX_local = aX;
+  } else {
+    adj_tmul(X_p, tmul(X_pj, X_jc), aX, aX_p, aX_local);
+    store_xform(s + bw::pX + 7 * r, aX_p);
+  }
+  Xform aX_jc = kZeroX;
+  adj_tmul(X_pj, X_jc, aX_local, dummyX, aX_jc);
+  if (ty == kPrismatic) {
+    aq[0] += dot(axis, aX_jc.p);
+  } else if (ty == kRevolute) {
+    const V3 aqv = {aX_jc.q.x, aX_jc.q.y, aX_jc.q.z};
+    aq[0] += (dot(axis, aqv) * cosf(half) - aX_jc.q.w * sinf(half)) * 0.5f;
+  } else {
+    aq[0] += aX_jc.p.x;
+    aq[1] += aX_jc.p.y;
+    aq[2] += aX_jc.p.z;
+    aq[3] += aX_jc.q.x;
+    aq[4] += aX_jc.q.y;
+    aq[5] += aX_jc.q.z;
+    aq[6] += aX_jc.q.w;
+  }
+}
+
 // q, gq [NC, E]; qd, joint_act, gqd [ND, E]; hinv [ND, ND, E]. Outputs
 // dq [NC, E], dqd, djoint_act [ND, E], dh [ND, ND, E] (row i, column j at
-// (i * ND + j) * E + e).
-__global__ void __launch_bounds__(32) substep_vjp_kernel(
+// (i * ND + j) * E + e). Block b takes envs [b * kEnvsPerBlock, ...) with
+// kVjpEnvWords floats of dynamic shared memory each, and a copy of the
+// constant buffer.
+__global__ void __launch_bounds__(kBlockThreads) substep_vjp_kernel(
     const float* __restrict__ q, const float* __restrict__ qd,
     const float* __restrict__ joint_act, const float* __restrict__ hinv,
     const float* __restrict__ gq, const float* __restrict__ gqd,
-    const float* __restrict__ P, float* __restrict__ dq,
+    const float* __restrict__ consts, float* __restrict__ dq,
     float* __restrict__ dqd, float* __restrict__ dja, float* __restrict__ dh,
     int E, float dt) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const Xform kIdentity = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 1.0f}};
+  constexpr int W = kVjpEnvWords;
+  const int e0 = blockIdx.x * kEnvsPerBlock;
+  const int nenv = E - e0 < kEnvsPerBlock ? E - e0 : kEnvsPerBlock;
+  const float* P = drl_smem + kEnvsPerBlock * W;
+  DRL_FOR_EACH_THREAD(t) {
+    load_consts<W>(consts, t);
+    load_rows<W>(q, NC, fw::q, e0, E, t);
+    load_rows<W>(qd, ND, fw::qd, e0, E, t);
+    DRL_COPY_COMMIT();
+    load_rows<W>(joint_act, ND, fw::ja, e0, E, t);
+    load_rows<W>(hinv, ND * ND, fw::hinv, e0, E, t);
+    load_rows<W>(gq, NC, bw::gq, e0, E, t);
+    load_rows<W>(gqd, ND, bw::gqd, e0, E, t);
+    DRL_COPY_COMMIT();
+    copy_tables(t);
+    DRL_COPY_WAIT_PRIOR();
+  }
+  __syncthreads();
 
   // ---- forward recompute (substep_forward_kernel up to qdd)
-  float qv[NC], qdv[ND];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) qv[i] = q[i * E + e];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) qdv[i] = qd[i * E + e];
-  Xform X_sc[NL];
-  SV vel[NL], acc[NL], frc[NL], S[NL];
-  forward_sweep(qv, qdv, P, X_sc, vel, acc, frc, S);
-  add_contacts(P, X_sc, vel, frc);
-  subtree_sums(frc);  // frc now holds the subtree wrenches
-  float tau[ND], qdd[ND];
-  joint_torques(qv, qdv, joint_act, e, E, P, S, frc, tau);
-  hinv_apply(hinv, e, E, tau, qdd);
-
-  float aq[NC], aqd[ND], aqdd[ND];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) aq[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < ND; ++i) aqd[i] = 0.0f;
+  forward_phases<W>(P, nenv);
 
   // ---- integrate
-#pragma unroll
-  for (int r = 0; r < NL; ++r) {
-    const int ty = link_type(r);
-    const int qs = link_qstart(r);
-    const int ds = link_dstart(r);
-    if (ty == kFree) {
-      const V3 w_s = V3{qdv[ds], qdv[ds + 1], qdv[ds + 2]} +
-                     V3{qdd[ds], qdd[ds + 1], qdd[ds + 2]} * dt;
-      const V3 p_s = {qv[qs], qv[qs + 1], qv[qs + 2]};
-      const Quat r_s = {qv[qs + 3], qv[qs + 4], qv[qs + 5], qv[qs + 6]};
-      const Quat wq = {w_s.x, w_s.y, w_s.z, 0.0f};
-      const Quat dr = qmul(wq, r_s);
-      const Quat u = {r_s.x + dr.x * 0.5f * dt, r_s.y + dr.y * 0.5f * dt,
-                      r_s.z + dr.z * 0.5f * dt, r_s.w + dr.w * 0.5f * dt};
-      const V3 gp = {gq[qs * E + e], gq[(qs + 1) * E + e],
-                     gq[(qs + 2) * E + e]};
-      const Quat gr = {gq[(qs + 3) * E + e], gq[(qs + 4) * E + e],
-                       gq[(qs + 5) * E + e], gq[(qs + 6) * E + e]};
-      V3 aw_s = {gqd[ds * E + e], gqd[(ds + 1) * E + e],
-                 gqd[(ds + 2) * E + e]};
-      V3 av_s = {gqd[(ds + 3) * E + e], gqd[(ds + 4) * E + e],
-                 gqd[(ds + 5) * E + e]};
-      // r_n = qnormalize(r_s + dr * 0.5 * dt), dr = qmul(wq, r_s)
-      Quat ar_s = adj_qnormalize(u, gr);
-      const Quat adr = {ar_s.x * 0.5f * dt, ar_s.y * 0.5f * dt,
-                        ar_s.z * 0.5f * dt, ar_s.w * 0.5f * dt};
-      Quat awq = {0.0f, 0.0f, 0.0f, 0.0f};
-      adj_qmul(wq, r_s, adr, awq, ar_s);
-      aw_s += V3{awq.x, awq.y, awq.z};
-      // p_n = p_s + (v_s + cross(w_s, p_s)) dt
-      V3 ap_s = gp;
-      const V3 adpdt = gp * dt;
-      av_s += adpdt;
-      adj_cross(w_s, p_s, adpdt, aw_s, ap_s);
-      // w_s = w + qdd_w dt, v_s = v + qdd_v dt
-      aq[qs] += ap_s.x;
-      aq[qs + 1] += ap_s.y;
-      aq[qs + 2] += ap_s.z;
-      aq[qs + 3] += ar_s.x;
-      aq[qs + 4] += ar_s.y;
-      aq[qs + 5] += ar_s.z;
-      aq[qs + 6] += ar_s.w;
-      const float a6[6] = {aw_s.x, aw_s.y, aw_s.z, av_s.x, av_s.y, av_s.z};
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        aqd[ds + k] += a6[k];
-        aqdd[ds + k] = a6[k] * dt;
-      }
-    } else {  // revolute / prismatic: q' = q + qd' dt, qd' = qd + qdd dt
-      const float gq_j = gq[qs * E + e];
-      const float aqd_n = gqd[ds * E + e] + gq_j * dt;
-      aq[qs] += gq_j;
-      aqd[ds] += aqd_n;
-      aqdd[ds] = aqd_n * dt;
+  DRL_FOR_EACH_THREAD(t) {
+    if (float* s = env_slot<W>(t, nenv)) {
+      for (int r = t % T; r < NL; r += T) link_integrate_adj(s, r, dt);
     }
   }
-
-  // ---- solve: lam = Hinv adj_qdd is adj_tau; dH = -lam qdd^T
-  float atau[ND];
-  hinv_apply(hinv, e, E, aqdd, atau);
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-#pragma unroll
-    for (int j = 0; j < ND; ++j) dh[(i * ND + j) * E + e] = -atau[i] * qdd[j];
-  }
-
-  // ---- joint torques
-  SV aF[NL], aS[NL];
-#pragma unroll
-  for (int r = 0; r < NL; ++r) {
-    const float* c = P + r * kLinkStride;
-    const int ty = link_type(r);
-    const int qs = link_qstart(r);
-    const int ds = link_dstart(r);
-    if (ty == kFree) {
-      aF[r] = {{-atau[ds], -atau[ds + 1], -atau[ds + 2]},
-               {-atau[ds + 3], -atau[ds + 4], -atau[ds + 5]}};
-      aS[r] = kZeroSV;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) dja[(ds + k) * E + e] = 0.0f;
-    } else {
-      const float at = atau[ds];
-      const float qj = qv[qs];
-      aF[r] = S[r] * (-at);    // Sf = dot(S, F)
-      aS[r] = frc[r] * (-at);
-      float aqj = -c[kTargetKe] * at;
-      if (qj < c[kLower] || qj > c[kUpper]) aqj += -c[kLimitKe] * at;
-      aq[qs] += aqj;
-      aqd[ds] += -c[kTargetKd] * at - c[kLimitKd] * at;
-      dja[ds * E + e] = at;
+  __syncwarp();
+  // ---- solve: lam = Hinv adj_qdd is adj_tau
+  DRL_FOR_EACH_THREAD(t) {
+    if (float* s = env_slot<W>(t, nenv)) {
+      for (int i = t % T; i < ND; i += T)
+        hinv_row(s, s + bw::aqdd, s + bw::atau, i);
     }
   }
-
+  __syncwarp();
+  // ---- dH = -lam qdd^T, over Hinv (read for the last time above); joint
+  // torques
+  DRL_FOR_EACH_THREAD(t) {
+    if (float* s = env_slot<W>(t, nenv)) {
+      for (int i = t % T; i < ND * ND; i += T)
+        s[fw::hinv + i] = -s[bw::atau + i / ND] * s[fw::qdd + i % ND];
+      for (int r = t % T; r < NL; r += T) link_torque_adj(P, s, r);
+    }
+  }
+  __syncwarp();
   // ---- subtree sums: each link's wrench reached all its ancestors
-#pragma unroll
-  for (int r = 0; r < NL; ++r) {
-    const int pr = link_parent(r);
-    if (pr >= 0) aF[r] += aF[pr];
-  }
-
-  // ---- contacts
-  Xform aX[NL];
-  SV avel[NL], aacc[NL];
-#pragma unroll
-  for (int r = 0; r < NL; ++r) {
-    aX[r] = kZeroX;
-    avel[r] = kZeroSV;
-    aacc[r] = kZeroSV;
-  }
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int row = contact_row(k);
-    adj_contact(P + kContact0 + k * kContactStride, X_sc[row], vel[row],
-                aF[row], aX[row], avel[row]);
-  }
-
-  // ---- inverse dynamics and fk, leaves to root
-  const V3 gravity = load3(P + kGravity);
-#pragma unroll
-  for (int r = NL - 1; r >= 0; --r) {
-    const float* c = P + r * kLinkStride;
-    const int ty = link_type(r);
-    const int pr = link_parent(r);
-    const int qs = link_qstart(r);
-    const int ds = link_dstart(r);
-    const Xform X_pj = load_xform(c + kXpj);
-    const Xform X_cm = load_xform(c + kXcm);
-    const V3 axis = load3(c + kAxis);
-    const float m = c[kMass];
-    const Xform X_sm = tmul(X_sc[r], X_cm);
-    Xform dummyX = kZeroX;
-
-    // frc = Ia + scross_dual(vel, Iv) - f_g, f_g = {cross(X_sm.p, gm), gm}
-    const SV g = aF[r];
-    Xform aX_sm = kZeroX;
-    adj_inertia_matvec(X_sm, c + kI3, m, acc[r], g, aX_sm, aacc[r]);
-    const SV Iv = inertia_matvec(X_sm, c + kI3, m, vel[r]);
-    SV aIv = kZeroSV;
-    adj_scross_dual(vel[r], Iv, g, avel[r], aIv);
-    adj_inertia_matvec(X_sm, c + kI3, m, vel[r], aIv, aX_sm, avel[r]);
-    V3 agm = kZero3;
-    adj_cross(X_sm.p, gravity * m, neg(g.w), aX_sm.p, agm);
-    adj_tmul(X_sc[r], X_cm, aX_sm, aX[r], dummyX);
-
-    // v_j, then acc = acc[pr] + scross(vel, v_j), vel = vel[pr] + v_j
-    const Xform X_sj = pr < 0 ? tmul(kIdentity, X_pj) : tmul(X_sc[pr], X_pj);
-    SV v_j;
-    if (ty == kFree) {
-      v_j = {{qdv[ds], qdv[ds + 1], qdv[ds + 2]},
-             {qdv[ds + 3], qdv[ds + 4], qdv[ds + 5]}};
-    } else {
-      v_j = S[r] * qdv[ds];
-    }
-    SV avj = kZeroSV;
-    if (pr < 0) {
-      adj_scross(v_j, v_j, aacc[r], avj, avj);
-    } else {
-      aacc[pr] += aacc[r];
-      adj_scross(vel[r], v_j, aacc[r], avel[r], avj);
-      avel[pr] += avel[r];
-    }
-    avj += avel[r];
-    if (ty == kFree) {
-      aqd[ds] += avj.w.x;
-      aqd[ds + 1] += avj.w.y;
-      aqd[ds + 2] += avj.w.z;
-      aqd[ds + 3] += avj.v.x;
-      aqd[ds + 4] += avj.v.y;
-      aqd[ds + 5] += avj.v.z;
-    } else {
-      aS[r] += avj * qdv[ds];
-      aqd[ds] += dot(S[r], avj);
-      // S from X_sj: revolute {w, cross(p, w)} with w = qrot(q, axis),
-      // prismatic {0, qrot(q, axis)}
-      Xform aX_sj = kZeroX;
-      V3 aaxis = kZero3;
-      if (ty == kRevolute) {
-        const V3 w = qrot(X_sj.q, axis);
-        V3 aw = aS[r].w;
-        adj_cross(X_sj.p, w, aS[r].v, aX_sj.p, aw);
-        adj_qrot(X_sj.q, axis, aw, aX_sj.q, aaxis);
-      } else {
-        adj_qrot(X_sj.q, axis, aS[r].v, aX_sj.q, aaxis);
+#pragma unroll 1
+  for (int lv = 1; lv < NLEV; ++lv) {
+    DRL_FOR_EACH_THREAD(t) {
+      if (float* s = env_slot<W>(t, nenv)) {
+        for (int r = level_start(lv) + t % T; r < level_start(lv + 1); r += T) {
+          const SV a = load_sv(s + bw::aF + 6 * r) +
+                       load_sv(s + bw::aF + 6 * link_parent(r));
+          store_sv(s + bw::aF + 6 * r, a);
+        }
       }
-      if (pr >= 0) adj_tmul(X_sc[pr], X_pj, aX_sj, aX[pr], dummyX);
     }
-
-    // X_sc = tmul(X_sc[pr], X_local), X_local = tmul(X_pj, X_jc)
-    Xform X_jc = kIdentity;
-    float half = 0.0f;
-    if (ty == kPrismatic) {
-      X_jc.p = axis * qv[qs];
-    } else if (ty == kRevolute) {
-      half = qv[qs] * 0.5f;
-      const V3 s = axis * sinf(half);
-      X_jc.p = kZero3;
-      X_jc.q = {s.x, s.y, s.z, cosf(half)};
-    } else {
-      X_jc = {{qv[qs], qv[qs + 1], qv[qs + 2]},
-              {qv[qs + 3], qv[qs + 4], qv[qs + 5], qv[qs + 6]}};
-    }
-    Xform aX_local = kZeroX;
-    if (pr < 0) {
-      aX_local = aX[r];
-    } else {
-      adj_tmul(X_sc[pr], tmul(X_pj, X_jc), aX[r], aX[pr], aX_local);
-    }
-    Xform aX_jc = kZeroX;
-    adj_tmul(X_pj, X_jc, aX_local, dummyX, aX_jc);
-    if (ty == kPrismatic) {
-      aq[qs] += dot(axis, aX_jc.p);
-    } else if (ty == kRevolute) {
-      const V3 aqv = {aX_jc.q.x, aX_jc.q.y, aX_jc.q.z};
-      aq[qs] += (dot(axis, aqv) * cosf(half) - aX_jc.q.w * sinf(half)) * 0.5f;
-    } else {
-      aq[qs] += aX_jc.p.x;
-      aq[qs + 1] += aX_jc.p.y;
-      aq[qs + 2] += aX_jc.p.z;
-      aq[qs + 3] += aX_jc.q.x;
-      aq[qs + 4] += aX_jc.q.y;
-      aq[qs + 5] += aX_jc.q.z;
-      aq[qs + 6] += aX_jc.q.w;
+    __syncwarp();
+  }
+  // ---- contacts, then each link's body wrench
+  DRL_FOR_EACH_THREAD(t) {
+    if (float* s = env_slot<W>(t, nenv)) {
+      for (int k = t % T; k < NK; k += T) contact_adj(P, s, k);
     }
   }
+  __syncwarp();
+  DRL_FOR_EACH_THREAD(t) {
+    if (float* s = env_slot<W>(t, nenv)) {
+      for (int r = t % T; r < NL; r += T) body_wrench_adj(P, s, r);
+    }
+  }
+  __syncwarp();
+  // ---- inverse dynamics and fk, leaves to root
+#pragma unroll 1
+  for (int lv = NLEV - 1; lv >= 0; --lv) {
+    DRL_FOR_EACH_THREAD(t) {
+      if (float* s = env_slot<W>(t, nenv)) {
+        for (int r = level_start(lv) + t % T; r < level_start(lv + 1);
+             r += T)
+          link_reverse(P, s, r);
+      }
+    }
+    __syncwarp();
+  }
 
-#pragma unroll
-  for (int i = 0; i < NC; ++i) dq[i * E + e] = aq[i];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) dqd[i * E + e] = aqd[i];
+  __syncthreads();
+  DRL_FOR_EACH_THREAD(t) {
+    store_rows<W>(dq, NC, bw::aq, e0, E, t);
+    store_rows<W>(dqd, ND, bw::aqd, e0, E, t);
+    store_rows<W>(dja, ND, bw::dja, e0, E, t);
+    store_rows<W>(dh, ND * ND, fw::hinv, e0, E, t);
+  }
 }
 
 }  // namespace drl

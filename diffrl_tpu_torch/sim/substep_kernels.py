@@ -3,7 +3,8 @@ VJP (counterparts of diffrl_tpu/sim/pallas_substep.py).
 
 ``substep_forward`` wraps ``diffrl_tpu_torch/csrc/substep_forward.cu``,
 which replaces the TPU kernel ``substep_forward_batched``: one cached
-substep for the whole batch, one CUDA thread per env. ``substep_vjp`` wraps
+substep for the whole batch, a team of threads per env with the env's
+intermediates in shared memory. ``substep_vjp`` wraps
 ``csrc/substep_vjp.cu``, which replaces ``substep_vjp_batched``: the VJP of
 that substep with the frozen-factor convention, written by hand as an
 adjoint sweep. On a CPU tensor each wrapper runs its kernel's plain
@@ -12,8 +13,9 @@ a CUDA tensor it launches the kernel or raises. ``substep_forward.launches``
 and ``substep_vjp.launches`` count the kernel launches.
 
 Both kernels are specialized to one model topology and share its tables:
-sizes and per-link tables go into a generated header (built at first use by
-``_build.py``), the float constants into one packed device buffer. They
+sizes, the team size, the level spans and per-link tables go into a
+generated header (built at first use by ``_build.py``), the float constants
+into one packed device buffer. They
 cover free, revolute and prismatic joints and ground contacts; a model with
 ball or fixed joints or muscles raises NotImplementedError when a kernel is
 prepared.
@@ -36,6 +38,7 @@ from .model import JOINT_FREE, JOINT_PRISMATIC, JOINT_REVOLUTE, Model
 _SUPPORTED_JOINTS = (JOINT_FREE, JOINT_PRISMATIC, JOINT_REVOLUTE)
 _LINK_STRIDE = 34      # floats per link row in the packed buffer (.cuh)
 _CONTACT_STRIDE = 8    # floats per contact
+_BLOCK_THREADS = 128   # threads per block of both kernels
 
 
 @dataclass(frozen=True)
@@ -50,12 +53,69 @@ class SubstepKernel:
     dof_count: int
 
 
+@dataclass(frozen=True)
+class TeamLayout:
+    """How both kernels spread one model's envs over the card's threads."""
+
+    threads_per_env: int      # T, the lanes of one env's team
+    envs_per_block: int
+    block_threads: int
+    forward_words: int        # floats of shared memory per env in K1
+    vjp_words: int            # ... in K2
+    const_words: int          # the packed constant buffer, once per block
+
+    def smem_bytes(self, name: str) -> int:
+        """Dynamic shared memory per block of kernel ``name``."""
+        words = self.forward_words if name == "substep_forward" \
+            else self.vjp_words
+        return 4 * (self.envs_per_block * words + self.const_words)
+
+
+def team_layout(model: Model) -> TeamLayout:
+    """The team size and the per-env shared-memory slots of both kernels.
+
+    T is the smallest power of two that is at least the widest level of the
+    tree and at least half the dofs (at most 32, one warp): every link of a
+    level then has its own lane in the sweeps, and the row phases (Hinv x,
+    dH) take at most two rows per lane. Ant: levels of 1, 4 and 4 links and
+    14 dofs, so T = 8 and 16 envs per 128-thread block; at 4096 envs that
+    is 1,024 warps, about 7.8 per SM of an H100. On that card
+    (tools/bench_substep_teams.py, PERF.md) T = 4, 8 and 16 came within 10 %
+    of each other and T = 32 took half as long again: the lanes of a warp
+    run one instruction stream, so a larger team finishes the phases that
+    take every link at once in fewer rounds but leaves more lanes idle in
+    the level sweeps. A slot holds the fields that
+    ``csrc/substep_forward.cuh`` (fw::) and ``csrc/substep_vjp.cuh`` (bw::)
+    lay out, rounded up to an odd count of floats so that the lanes of a
+    warp reading one field of several envs hit different banks; the
+    headers check these counts at compile time.
+    """
+    topo = model.topology
+    plan = _plan_for(model, "cpu")
+    L, C, D = topo.link_count, topo.coord_count, topo.dof_count
+    K = len(plan.contact_rows)
+    widest = max((e - s for s, e in plan.levels), default=1)
+    need = max(widest, (D + 1) // 2)
+    T = 1
+    while T < need and T < 32:
+        T *= 2
+    fwd = C + 4 * D + D * D + 31 * L + 6 * K
+    vjp = fwd + 2 * C + 5 * D + 50 * L + 13 * K
+    return TeamLayout(threads_per_env=T,
+                      envs_per_block=_BLOCK_THREADS // T,
+                      block_threads=_BLOCK_THREADS,
+                      forward_words=fwd | 1, vjp_words=vjp | 1,
+                      const_words=L * _LINK_STRIDE + 3 + K * _CONTACT_STRIDE)
+
+
 def kernel_tables(model: Model):
     """(generated header text, packed constants [n] f32) for ``model``.
 
     Tables are in the engine plan's processing order (level-major, parents
-    before children). Raises NotImplementedError for features the kernel
-    lacks.
+    before children), with the plan's level spans, each link's children
+    (descending rows) and contacts (ascending contact order), and the team
+    layout of ``team_layout``. Raises NotImplementedError for features the
+    kernel lacks.
     """
     topo = model.topology
     if topo.muscle_count:
@@ -105,6 +165,11 @@ def kernel_tables(model: Model):
         return "{" + ", ".join(str(int(x)) for x in xs) + "}" if len(xs) \
             else "{0}"
 
+    children = [[c for c in range(L - 1, -1, -1) if parent[c] == r]
+                for r in range(L)]
+    link_contacts = [np.nonzero(plan.contact_rows == r)[0] for r in range(L)]
+    layout = team_layout(model)
+
     header = "\n".join([
         "// generated by diffrl_tpu_torch/sim/substep_kernels.py",
         "#pragma once",
@@ -117,6 +182,21 @@ def kernel_tables(model: Model):
         f"#define DRL_QSTART {table(qs)}",
         f"#define DRL_DSTART {table(ds)}",
         f"#define DRL_CONTACT_ROW {table(plan.contact_rows)}",
+        f"#define DRL_NLEV {len(plan.levels)}",
+        f"#define DRL_LEVEL_START "
+        f"{table([s for s, _ in plan.levels] + [L])}",
+        f"#define DRL_CHILD_START "
+        f"{table(np.cumsum([0] + [len(c) for c in children]))}",
+        f"#define DRL_CHILDREN {table(sum(children, []))}",
+        f"#define DRL_LINK_CONTACT_START "
+        f"{table(np.cumsum([0] + [len(c) for c in link_contacts]))}",
+        f"#define DRL_LINK_CONTACTS "
+        f"{table(np.concatenate(link_contacts) if L else [])}",
+        f"#define DRL_NCHILD {sum(map(len, children))}",
+        f"#define DRL_T {layout.threads_per_env}",
+        f"#define DRL_BLOCK_THREADS {layout.block_threads}",
+        f"#define DRL_FWD_ENV_WORDS {layout.forward_words}",
+        f"#define DRL_VJP_ENV_WORDS {layout.vjp_words}",
         "",
     ])
     return header, consts
@@ -170,8 +250,7 @@ def _prepare(name: str, model: Model, device,
     count.argtypes = []
     count.restype = ctypes.c_int
     attrs = getattr(lib, f"drl_{name}_attributes")
-    attrs.argtypes = [ctypes.POINTER(ctypes.c_int),
-                      ctypes.POINTER(ctypes.c_int)]
+    attrs.argtypes = [ctypes.POINTER(ctypes.c_int)]
     attrs.restype = ctypes.c_int
     if count() != consts.size:
         raise RuntimeError(f"{name} expects {count()} constants, the model "
@@ -200,14 +279,37 @@ def prepare_substep_vjp(model: Model, device,
     return _prepare("substep_vjp", model, device, built)
 
 
-def kernel_attributes(k: SubstepKernel):
-    """(registers per thread, local bytes per thread) as loaded on the card."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = getattr(k.built.lib, f"drl_{k.name}_attributes")(
-        ctypes.byref(regs), ctypes.byref(local))
+@dataclass(frozen=True)
+class KernelAttributes:
+    """What the card reports for one loaded kernel."""
+
+    registers: int            # per thread
+    local_bytes: int          # spill + stack per thread
+    threads_per_env: int
+    envs_per_block: int
+    smem_bytes: int           # dynamic shared memory per block
+    max_blocks_per_sm: int    # cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    sm_count: int
+
+    def resident(self, E: int):
+        """(blocks, warps) resident per SM, on average over the card's SMs,
+        in a launch over E envs: the grid's blocks spread over the SMs, at
+        most ``max_blocks_per_sm`` each."""
+        grid = -(-E // self.envs_per_block)
+        blocks = min(float(self.max_blocks_per_sm), grid / self.sm_count)
+        warps = blocks * self.envs_per_block * self.threads_per_env / 32
+        return blocks, warps
+
+
+def kernel_attributes(k: SubstepKernel) -> KernelAttributes:
+    """Registers, local memory, team layout and occupancy of ``k`` as
+    loaded on the current device."""
+    out = (ctypes.c_int * 7)()
+    err = getattr(k.built.lib, f"drl_{k.name}_attributes")(out)
     if err:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
-    return regs.value, local.value
+        raise RuntimeError(f"{k.name}: attribute query failed: cudaError "
+                           f"{err}")
+    return KernelAttributes(*out)
 
 
 def _check(kernel, name, t, shape, device):

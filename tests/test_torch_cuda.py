@@ -12,6 +12,11 @@ rtol 2e-4 and atol 1e-5 in units of each env's largest cotangent entry
 (check_vjp), and entry by entry no further from the float64 plain version
 than twice the float32 plain version's error plus rtol and 8 times the
 plain version's largest error in that env (check_against_f64).
+
+Both kernels are checked at E = 4096 (the main path), 1000 (a partial last
+block) and 1 (one env in a block of 16); two launches on the same inputs
+must give the same bits (no atomics); and at E = 4096 each kernel keeps at
+least 4 warps resident per SM.
 """
 
 import pytest
@@ -32,7 +37,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("E", [4096, 1000])
+@pytest.mark.parametrize("E", [4096, 1000, 1])
 def test_kernel_matches_plain(cuda, E):
     env = envs.make("Ant", num_envs=E, stochastic_init=True,
                     MM_caching_frequency=16, device=cuda)
@@ -50,9 +55,11 @@ def test_kernel_matches_plain(cuda, E):
         kq, kqd = sk.substep_forward(env.model, q1, qd1, ja, None, h, H, Hinv)
         assert sk.substep_forward.launches == n + 1
         pq, pqd = lb.substep_lb(env.model, q1, qd1, ja, None, h, H, Hinv)
+        again = sk.substep_forward(env.model, q1, qd1, ja, None, h, H, Hinv)
     torch.cuda.synchronize()
     torch.testing.assert_close(kq, pq, rtol=2e-5, atol=2e-6)
     torch.testing.assert_close(kqd, pqd, rtol=2e-5, atol=2e-5)
+    assert torch.equal(kq, again[0]) and torch.equal(kqd, again[1])
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -78,7 +85,7 @@ def _settled(env, steps=14):
     return s
 
 
-@pytest.mark.parametrize("E", [4096, 1000])
+@pytest.mark.parametrize("E", [4096, 1000, 1])
 def test_vjp_kernel_matches_plain(cuda, E):
     env = envs.make("Ant", num_envs=E, stochastic_init=True,
                     MM_caching_frequency=16, device=cuda)
@@ -102,12 +109,34 @@ def test_vjp_kernel_matches_plain(cuda, E):
     want = lb.substep_vjp_lb(*args)
     exact = lb.substep_vjp_lb(env.model, *(t.double() for t in args[1:4]),
                               None, h, *(t.double() for t in args[6:]))
+    again = sk.substep_vjp(*args)
     torch.cuda.synchronize()
+    for a, b in zip(got[:3] + got[4:], again[:3] + again[4:]):
+        assert torch.equal(a, b)
     for lab, a, b, x in zip(("dq", "dqd", "djoint_act", "dH"),
                             got[:3] + got[4:], want[:3] + want[4:],
                             exact[:3] + exact[4:]):
         check_vjp(lab, a, b, 2e-4, 1e-5)
         check_against_f64(lab, a, b, x, 2e-4, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["substep_forward", "substep_vjp"])
+def test_kernel_occupancy(cuda, name):
+    """At the main path's 4096 envs each kernel keeps at least 4 warps
+    resident per SM (the card's occupancy query and the grid), with the
+    team layout the tables state and no spills (the only local memory is
+    the stack frame of sinf/cosf's reduction of huge arguments)."""
+    env = envs.make("Ant", num_envs=8, MM_caching_frequency=16, device=cuda)
+    k = sk._prepare(name, env.model, cuda, None)
+    a = sk.kernel_attributes(k)
+    lay = sk.team_layout(env.model)
+    assert (a.threads_per_env, a.envs_per_block) == (
+        lay.threads_per_env, lay.envs_per_block)
+    assert a.smem_bytes == lay.smem_bytes(name)
+    assert a.max_blocks_per_sm >= 1
+    assert k.built.spill_store_bytes == k.built.spill_load_bytes == 0
+    _, warps = a.resident(4096)
+    assert warps >= 4.0
 
 
 def test_vjp_kernel_rejects_bad_inputs(cuda):

@@ -8,8 +8,11 @@ sim.substep_kernels and envs.base) against the JAX package, on the CPU.
   the tie in the contact damping's minimum). Tolerances are the Pallas
   adjoint kernel's, tests/test_pallas.py: rtol 2e-4, atol 1e-5;
 - the adjoint kernel's CUDA source compiled for the host with g++ (CUDA
-  qualifiers defined away, one call per env) against its plain version
-  substep_vjp_lb, at the same tolerances;
+  qualifiers and syncs defined away; every thread of a block runs one
+  phase before the next starts, so a team's lanes are emulated) against
+  its plain version substep_vjp_lb at the same tolerances and against the
+  plain version in float64 by diffrl_tpu_torch.testing's rule, at E = 32
+  (whole blocks) and E = 37 (a partial block);
 - the window gradient of simulate_batched_lb against the JAX
   simulate_batched_lb(reverse="replay") on Ant at E = 4, mm 4, 8 substeps
   (tests/_lb_window_check.py's shape): values rtol 1e-4 atol 1e-5, grads
@@ -323,26 +326,38 @@ def test_vjp_launch_is_bound_by_bytes(ant):
 # ---------------------------------------------------------------------------
 # the adjoint kernel's CUDA source, compiled for the host
 
+# every thread of a block runs a phase before the next phase starts
 _SHIM = """
 #include <math.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __constant__
+#define __shared__
+#define __syncwarp()
+#define __syncthreads()
+#define DRL_FOR_EACH_THREAD(t) for (int t = 0; t < (int)blockDim.x; ++t)
+#define DRL_COPY_TO_SHARED(dst, src) (*(dst) = *(src))
+#define DRL_COPY_COMMIT()
+#define DRL_COPY_WAIT_PRIOR()
+#define DRL_COPY_WAIT()
 struct Dim3 { int x; };
 static Dim3 blockIdx, blockDim, threadIdx;
 """
 _HARNESS = """
 #include "substep_vjp.cuh"
+namespace drl {
+float drl_smem[kEnvsPerBlock * kVjpEnvWords + kConstCount];
+}
 extern "C" int const_count() { return drl::kConstCount; }
 extern "C" void run(const float* q, const float* qd, const float* ja,
                     const float* hinv, const float* gq, const float* gqd,
                     const float* consts, float* dq, float* dqd, float* dja,
                     float* dh, int E, float dt) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int e = 0; e < E; ++e) {
-    blockIdx.x = e;
+  blockDim.x = drl::kBlockThreads;
+  for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
+    blockIdx.x = b;
     drl::substep_vjp_kernel(q, qd, ja, hinv, gq, gqd, consts, dq, dqd, dja,
                             dh, E, dt);
   }
@@ -373,17 +388,38 @@ def host_vjp(ant, tmp_path_factory):
     return so, consts
 
 
+@pytest.fixture(scope="module")
+def host_states(ant):
+    """As ``states``, at E = 37: two whole blocks of 16 envs and a partial
+    one. E = 32 takes the first 32 envs."""
+    _, tm = ant
+    E = 37
+    q, qd = _settled(tm, E, seed=4)
+    assert (_contacts_active(tm, q) > 0).all()
+    rs = np.random.RandomState(5)
+    ja = np.zeros((tm.dof_count, E), np.float32)
+    ja[6:] = rs.uniform(-100.0, 100.0, (tm.dof_count - 6, E))
+    cot = [rs.normal(size=s).astype(np.float32)
+           for s in ((tm.coord_count, E), (tm.dof_count, E))]
+    return {"settled": (q, qd, ja), "rest": (q, np.zeros_like(qd), ja)}, cot
+
+
+@pytest.mark.parametrize("E", [32, 37])
 @pytest.mark.parametrize("which", ["settled", "rest"])
-def test_vjp_kernel_source_matches_plain_on_host(ant, states, host_vjp,
-                                                 which):
+def test_vjp_kernel_source_matches_plain_on_host(ant, host_states, host_vjp,
+                                                 which, E):
     _, tm = ant
     so, consts = host_vjp
-    (q, qd, ja), (gq, gqd, _) = states[0][which], states[1]
-    E = q.shape[-1]
+    (q, qd, ja), (gq, gqd) = host_states[0][which], host_states[1]
+    q, qd, ja, gq, gqd = (np.ascontiguousarray(x[..., :E])
+                          for x in (q, qd, ja, gq, gqd))
     tq, tqd, tja = _t(q, qd, ja)
     _, _, H, Hinv = tlb.refresh_substep_lb(tm, tq, tqd, tja, None, H_ANT)
     want = tlb.substep_vjp_lb(tm, tq, tqd, tja, None, H_ANT, H, Hinv,
                               *_t(gq, gqd))
+    exact = tlb.substep_vjp_lb(tm, *(t.double() for t in (tq, tqd, tja)),
+                               None, H_ANT, H.double(), Hinv.double(),
+                               *(t.double() for t in _t(gq, gqd)))
     ins = [np.ascontiguousarray(x) for x in (q, qd, ja, Hinv.numpy(), gq,
                                               gqd)]
     outs = [np.zeros_like(ins[0]), np.zeros_like(ins[1]),
@@ -391,7 +427,9 @@ def test_vjp_kernel_source_matches_plain_on_host(ant, states, host_vjp,
     ptr = [a.ctypes.data_as(ctypes.c_void_p)
            for a in (*ins, consts, *outs)]
     so.run(*ptr, E, H_ANT)
-    for lab, got, w in zip(("dq", "dqd", "dja", "dH"), outs,
-                           want[:3] + want[4:]):
+    for lab, got, w, x in zip(("dq", "dqd", "dja", "dH"), outs,
+                              want[:3] + want[4:], exact[:3] + exact[4:]):
         np.testing.assert_allclose(got, w.numpy(), **VJP_TOL,
                                    err_msg=f"{which} {lab}")
+        check_against_f64(f"{which} {lab}", torch.as_tensor(got), w, x,
+                          **VJP_TOL)

@@ -12,8 +12,13 @@ against the JAX package, on the CPU.
 - the forward simulate against the dflex golden Ant trajectory, at
   tests/test_parity.py's tolerances (atol 1e-5 for 15 steps, 1e-4 for 40);
 - the CUDA kernel's source compiled for the host with g++ (CUDA qualifiers
-  defined away, one call per env) against substep_lb at the kernel's
-  tolerances, so its arithmetic is checked where no GPU is present.
+  and syncs defined away; every thread of a block runs one phase before the
+  next starts, so a team's lanes are emulated) against substep_lb at the
+  kernel's tolerances, at E = 32 (whole blocks of 16 envs) and E = 37 (a
+  partial block), so its arithmetic and lane-to-work map are checked where
+  no GPU is present;
+- the generated tables: level spans, children, contact order and the team
+  layout.
 """
 
 import dataclasses
@@ -199,25 +204,99 @@ def test_kernel_rejects_unsupported_models():
 # ---------------------------------------------------------------------------
 # the CUDA source, compiled for the host
 
+def _header_tables(header):
+    """{name: int or [int]} of the generated header's #defines."""
+    out = {}
+    for line in header.splitlines():
+        if line.startswith("#define DRL_"):
+            _, name, val = line.split(" ", 2)
+            out[name[4:]] = ([int(x) for x in val.strip("{}").split(",")]
+                             if val.startswith("{") else int(val))
+    return out
+
+
+def test_kernel_tables_team_layout(ant):
+    """The level spans, children and contact lists the kernels sweep by,
+    and the team size and shared-memory slots the header states."""
+    _, tm = ant
+    header, _ = sk.kernel_tables(tm)
+    plan = tlb._plan_for(tm, "cpu")
+    t = _header_tables(header)
+    L = t["NL"]
+    starts = t["LEVEL_START"]
+    assert len(starts) == t["NLEV"] + 1 and starts[0] == 0 and \
+        starts[-1] == L
+    assert [(a, b) for a, b in zip(starts, starts[1:])] == list(plan.levels)
+    level = np.zeros(L, np.int64)
+    for lv, (a, b) in enumerate(zip(starts, starts[1:])):
+        assert a < b
+        level[a:b] = lv
+    # every link in exactly one span; each parent's level before its child's
+    assert np.bincount(level, minlength=t["NLEV"]).sum() == L
+    parent = t["PARENT"]
+    for r in range(L):
+        assert parent[r] < 0 or level[parent[r]] == level[r] - 1
+    # children: descending rows, exactly the links whose parent is r
+    cs, ch = t["CHILD_START"], t["CHILDREN"]
+    for r in range(L):
+        assert ch[cs[r]:cs[r + 1]] == [c for c in range(L - 1, -1, -1)
+                                       if parent[c] == r]
+    # contacts: the plan's contact-to-link order, ascending per link
+    assert t["CONTACT_ROW"] == plan.contact_rows.tolist()
+    ks, kl = t["LINK_CONTACT_START"], t["LINK_CONTACTS"]
+    assert ks[-1] == t["NK"] == len(plan.contact_rows)
+    for r in range(L):
+        assert kl[ks[r]:ks[r + 1]] == np.nonzero(
+            plan.contact_rows == r)[0].tolist()
+    assert t["NCHILD"] == len(ch) == cs[-1] == sum(p >= 0 for p in parent)
+    # Ant: levels of 1, 4 and 4 links, 14 dofs: T = 8, 16 envs per
+    # 128-thread block
+    lay = sk.team_layout(tm)
+    assert (t["T"], t["BLOCK_THREADS"]) == (lay.threads_per_env,
+                                            lay.block_threads) == (8, 128)
+    assert lay.envs_per_block == 16
+    assert (t["FWD_ENV_WORDS"], t["VJP_ENV_WORDS"]) == (
+        lay.forward_words, lay.vjp_words) == (697, 1571)
+    _, consts = sk.kernel_tables(tm)
+    assert lay.const_words == consts.size
+    assert lay.smem_bytes("substep_forward") == (16 * 697 + consts.size) * 4
+    assert lay.smem_bytes("substep_vjp") == (16 * 1571 + consts.size) * 4
+    # the pendulum: one link, a team of one
+    pl = sk.team_layout(_port_pendulum())
+    assert (pl.threads_per_env, pl.envs_per_block) == (1, 128)
+
+
+# every thread of a block runs a phase before the next phase starts
 _SHIM = """
 #include <math.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __constant__
+#define __shared__
+#define __syncwarp()
+#define __syncthreads()
+#define DRL_FOR_EACH_THREAD(t) for (int t = 0; t < (int)blockDim.x; ++t)
+#define DRL_COPY_TO_SHARED(dst, src) (*(dst) = *(src))
+#define DRL_COPY_COMMIT()
+#define DRL_COPY_WAIT_PRIOR()
+#define DRL_COPY_WAIT()
 struct Dim3 { int x; };
 static Dim3 blockIdx, blockDim, threadIdx;
 """
 _HARNESS = """
 #include "substep_forward.cuh"
+namespace drl {
+float drl_smem[kEnvsPerBlock * kFwdEnvWords + kConstCount];
+}
 extern "C" int const_count() { return drl::kConstCount; }
 extern "C" void run(const float* q, const float* qd, const float* ja,
                     const float* hinv, const float* consts, float* q_out,
                     float* qd_out, int E, float dt) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (int e = 0; e < E; ++e) {
-    blockIdx.x = e;
+  blockDim.x = drl::kBlockThreads;
+  for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
+    blockIdx.x = b;
     drl::substep_forward_kernel(q, qd, ja, hinv, consts, q_out, qd_out, E,
                                 dt);
   }
@@ -225,17 +304,22 @@ extern "C" void run(const float* q, const float* qd, const float* ja,
 """
 
 
-def _host_kernel(model, tmp_path):
-    header, consts = sk.kernel_tables(model)
-    (tmp_path / "substep_topology.h").write_text(header)
-    (tmp_path / "shim.h").write_text(_SHIM)
-    (tmp_path / "harness.cpp").write_text(_HARNESS)
-    lib = tmp_path / "libhost.so"
+@pytest.fixture(scope="module")
+def host_forward(ant, tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    _, tm = ant
+    tmp = tmp_path_factory.mktemp("forward")
+    header, consts = sk.kernel_tables(tm)
+    (tmp / "substep_topology.h").write_text(header)
+    (tmp / "shim.h").write_text(_SHIM)
+    (tmp / "harness.cpp").write_text(_HARNESS)
+    lib = tmp / "libhost.so"
     subprocess.run(
         ["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-         "-include", str(tmp_path / "shim.h"), f"-I{tmp_path}",
+         "-include", str(tmp / "shim.h"), f"-I{tmp}",
          f"-I{os.path.join(HERE, '..', 'diffrl_tpu_torch', 'csrc')}",
-         "-o", str(lib), str(tmp_path / "harness.cpp")],
+         "-o", str(lib), str(tmp / "harness.cpp")],
         check=True, capture_output=True, text=True, timeout=120)
     so = ctypes.CDLL(str(lib))
     so.run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
@@ -243,11 +327,10 @@ def _host_kernel(model, tmp_path):
     return so, consts
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
-def test_kernel_source_matches_plain_on_host(ant, tmp_path):
+@pytest.mark.parametrize("E", [32, 37])
+def test_kernel_source_matches_plain_on_host(ant, host_forward, E):
     _, tm = ant
-    so, consts = _host_kernel(tm, tmp_path)
-    E = 32
+    so, consts = host_forward
     q, qd, ja = _ant_inputs(tm, E, seed=5)
     tq, tqd, tja = map(torch.as_tensor, (q, qd, ja))
     q1, qd1, H, Hinv = tlb.refresh_substep_lb(tm, tq, tqd, tja, None, H_ANT)
