@@ -509,6 +509,21 @@ class SHAC:
             num_games, gamma=self.gamma, generator=gen)
         return -mean_rew, -mean_disc, mean_len
 
+    def run(self, num_games):
+        """Evaluates the current policy over ``num_games`` episodes and
+        prints the means; returns (mean episode loss, mean length)."""
+        mean_loss, mean_disc, mean_len = self.evaluate_policy(num_games)
+        print_info(f"mean episode loss = {mean_loss}, mean discounted loss = "
+                   f"{mean_disc}, mean episode length = {mean_len}")
+        return mean_loss, mean_len
+
+    def play(self, cfg):
+        """Loads ``cfg``'s general checkpoint and runs the player's
+        games_num episodes."""
+        self.load(cfg["params"]["general"]["checkpoint"])
+        return self.run(cfg["params"]["config"].get("player", {}).get(
+            "games_num", 1))
+
     # ---------------------------------------------------------- checkpoints
 
     def _snapshot(self, copy_state: bool = False):

@@ -9,11 +9,12 @@
 
 namespace drl {
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory: above 48 KB a
-// kernel has to opt in. Returns the cudaError_t.
+// Lets `kernel` take `smem` bytes of dynamic shared memory. A kernel whose
+// static and dynamic shared memory together pass 48 KB has to opt in; the
+// static part (the int tables) is not counted in `smem`, so every kernel
+// opts in. Returns the cudaError_t.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }

@@ -12,7 +12,8 @@ namespace {
 constexpr int kSmemBytes =
     (drl::kEnvsPerBlock * drl::kFwdEnvWords + drl::kConstCount) *
     static_cast<int>(sizeof(float));
-static_assert(kSmemBytes <= 232448, "more shared memory than a block has");
+static_assert(kSmemBytes + sizeof(drl::Tables) <= 232448,
+              "more shared memory than a block has");
 }  // namespace
 
 extern "C" {

@@ -1,12 +1,22 @@
-"""Environment registry (port of diffrl_tpu/envs/__init__.py; Ant so far,
-the other envs arrive with their slice)."""
+"""Environment registry (port of diffrl_tpu/envs/__init__.py; the MJCF
+locomotion envs so far: CartPole and SNU Humanoid arrive with their slice)."""
 
 from .base import DiffEnv, EnvState
 from .ant import AntEnv
+from .cheetah import CheetahEnv
+from .hopper import HopperEnv
+from .humanoid import HumanoidEnv
 
 _REGISTRY = {
     "AntEnv": AntEnv,
+    "CheetahEnv": CheetahEnv,
+    "HopperEnv": HopperEnv,
+    "HumanoidEnv": HumanoidEnv,
+    # short aliases
     "Ant": AntEnv,
+    "Cheetah": CheetahEnv,
+    "Hopper": HopperEnv,
+    "Humanoid": HumanoidEnv,
 }
 
 

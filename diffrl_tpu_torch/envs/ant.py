@@ -9,11 +9,11 @@ import os
 import numpy as np
 import torch
 
-from ..ops import quat_conjugate, quat_from_angle_axis, quat_mul, safe_normalize
+from ..ops import quat_conjugate
 from ..sim.importers.mjcf import parse_mjcf
 from ..sim.model import ModelBuilder, np_quat_from_axis_angle
 from .base import DiffEnv
-from .locomotion import torso_observations
+from .locomotion import free_base_initial_state, free_base_observations
 
 _ASSETS = os.path.join(os.path.dirname(__file__), "assets")
 
@@ -86,23 +86,9 @@ class AntEnv(DiffEnv):
         return joint_act, None
 
     def observations(self, joint_q, joint_qd, actions):
-        torso_pos, torso_rot, lin_vel, ang_vel, up_y, heading = \
-            torso_observations(joint_q, joint_qd, self.inv_start_rot,
-                               self.targets, self.start_pos)
-        return torch.cat(
-            [
-                torso_pos[:, 1:2],                                 # 0
-                torso_rot,                                         # 1:5
-                lin_vel,                                           # 5:8
-                ang_vel,                                           # 8:11
-                joint_q[:, 7:],                                    # 11:19
-                self.joint_vel_obs_scaling * joint_qd[:, 6:],      # 19:27
-                up_y[:, None],                                     # 27
-                heading[:, None],                                  # 28
-                actions,                                           # 29:37
-            ],
-            dim=-1,
-        )
+        # 0 height, 1:5 rotation, 5:8 and 8:11 velocities, 11:19 joint
+        # angles, 19:27 joint velocities, 27 up, 28 heading, 29:37 actions
+        return free_base_observations(self, joint_q, joint_qd, actions)
 
     def reward(self, obs, actions):
         up_reward = 0.1 * obs[:, 27]
@@ -118,21 +104,4 @@ class AntEnv(DiffEnv):
         return obs[:, 0] < self.termination_height
 
     def initial_state(self, n):
-        C, D = self.model.coord_count, self.model.dof_count
-        q0 = self.joint_q_init.expand(n, C)
-        qd0 = torch.zeros((n, D), device=self.device)
-        if not self.stochastic_init:
-            return q0.clone(), qd0
-        g = self.generator
-
-        def uniform(*shape):
-            return torch.rand(shape, generator=g, device=self.device)
-
-        pos = q0[:, 0:3] + 0.1 * (uniform(n, 3) - 0.5) * 2.0
-        angle = (uniform(n) - 0.5) * np.pi / 12.0
-        axis = safe_normalize(uniform(n, 3) - 0.5)
-        rot = quat_mul(q0[:, 3:7], quat_from_angle_axis(angle, axis))
-        joints = q0[:, 7:] + 0.2 * (uniform(n, C - 7) - 0.5) * 2.0
-        q0 = torch.cat([pos, rot, joints], dim=-1)
-        qd0 = 0.5 * (uniform(n, D) - 0.5)
-        return q0, qd0
+        return free_base_initial_state(self, n)

@@ -40,6 +40,15 @@ class EnvState:
                         self.actions.detach(), self.progress)
 
 
+def clip(x, lo: float, hi: float):
+    """jnp.clip's semantics: the maximum with lo, then the minimum with hi,
+    so that at a tie each side takes half the cotangent (torch.clamp would
+    pass all of it). The bounds are filled on x's device: a tensor made
+    from a host number would be a synchronizing copy on every call."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def _sanitize(x):
     return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
 

@@ -39,6 +39,8 @@ _SUPPORTED_JOINTS = (JOINT_FREE, JOINT_PRISMATIC, JOINT_REVOLUTE)
 _LINK_STRIDE = 34      # floats per link row in the packed buffer (.cuh)
 _CONTACT_STRIDE = 8    # floats per contact
 _BLOCK_THREADS = 128   # threads per block of both kernels
+_MIN_TEAM = 8          # fewest threads per env (team_layout)
+_SMEM_PER_BLOCK = 232448   # shared memory one block may take on sm_90
 
 
 @dataclass(frozen=True)
@@ -75,16 +77,21 @@ def team_layout(model: Model) -> TeamLayout:
     """The team size and the per-env shared-memory slots of both kernels.
 
     T is the smallest power of two that is at least the widest level of the
-    tree and at least half the dofs (at most 32, one warp): every link of a
-    level then has its own lane in the sweeps, and the row phases (Hinv x,
-    dH) take at most two rows per lane. Ant: levels of 1, 4 and 4 links and
-    14 dofs, so T = 8 and 16 envs per 128-thread block; at 4096 envs that
-    is 1,024 warps, about 7.8 per SM of an H100. On that card
-    (tools/bench_substep_teams.py, PERF.md) T = 4, 8 and 16 came within 10 %
-    of each other and T = 32 took half as long again: the lanes of a warp
-    run one instruction stream, so a larger team finishes the phases that
-    take every link at once in fewer rounds but leaves more lanes idle in
-    the level sweeps. A slot holds the fields that
+    tree and at least 8 (at most 32, one warp), doubled while the adjoint
+    kernel's block would not fit the card's shared memory: every link of a
+    level has its own lane in the sweeps, and at the main path's 4096 envs
+    the card holds at least 1,024 warps. Ant, Humanoid, Hopper and Cheetah
+    all get T = 8 and 16 envs per 128-thread block. The lanes of a warp run
+    one instruction stream, so a larger team finishes the phases that take
+    every link, contact or row at once in fewer rounds, but leaves more
+    lanes idle in the level sweeps and, with fewer envs per block, needs
+    more blocks. On the H100 (tools/bench_substep_teams.py, PERF.md): on
+    Ant T = 4, 8 and 16 came within 10 % of each other and T = 32 took half
+    as long again; on Humanoid the adjoint took 94 µs at T = 8, 151 at 16
+    and 135 at 32: its 116 KB (T = 16) or 228 KB (T = 8) block fits once
+    per SM either way, and 4096 envs make 512 blocks, 4 waves, at T = 16
+    against 256, 2 waves, at T = 8. Hopper's 6 dofs once gave T = 4, which
+    leaves 3.9 warps per SM at 4096 envs. A slot holds the fields that
     ``csrc/substep_forward.cuh`` (fw::) and ``csrc/substep_vjp.cuh`` (bw::)
     lay out, rounded up to an odd count of floats so that the lanes of a
     warp reading one field of several envs hit different banks; the
@@ -95,17 +102,23 @@ def team_layout(model: Model) -> TeamLayout:
     L, C, D = topo.link_count, topo.coord_count, topo.dof_count
     K = len(plan.contact_rows)
     widest = max((e - s for s, e in plan.levels), default=1)
-    need = max(widest, (D + 1) // 2)
-    T = 1
-    while T < need and T < 32:
-        T *= 2
     fwd = C + 4 * D + D * D + 31 * L + 6 * K
     vjp = fwd + 2 * C + 5 * D + 50 * L + 13 * K
+    consts = L * _LINK_STRIDE + 3 + K * _CONTACT_STRIDE
+    # the int tables' static shared memory (csrc/substep_forward.cuh Tables)
+    nchild = sum(1 for p in topo.joint_parent if p >= 0)
+    tables = 4 * (6 * L + 2 * max(K, 1) + max(nchild, 1) + 2
+                  + len(plan.levels) + 1)
+    T = 1
+    while T < 32 and (T < max(widest, _MIN_TEAM) or 4 * (
+            _BLOCK_THREADS // T * (vjp | 1) + consts) + tables
+            > _SMEM_PER_BLOCK):
+        T *= 2
     return TeamLayout(threads_per_env=T,
                       envs_per_block=_BLOCK_THREADS // T,
                       block_threads=_BLOCK_THREADS,
                       forward_words=fwd | 1, vjp_words=vjp | 1,
-                      const_words=L * _LINK_STRIDE + 3 + K * _CONTACT_STRIDE)
+                      const_words=consts)
 
 
 def kernel_tables(model: Model):
@@ -431,8 +444,11 @@ def substep_forward_flops(model: Model, E: int) -> int:
         t = topo.joint_type[link]
         n += 4 * _TMUL                            # X_local, X_sc, X_sm, X_sj
         n += 2 * _INERTIA + _SCROSS + 3 + _CROSS + 12 + 6 + _SCROSS + 6
-        if t in (JOINT_REVOLUTE, JOINT_PRISMATIC):
+        if t == JOINT_REVOLUTE:
             n += 6 + _QROT + _CROSS + 6           # joint, S, v_j
+        elif t == JOINT_PRISMATIC:
+            n += 3 + _QROT + 6                    # joint, S (no cross), v_j
+        if t in (JOINT_REVOLUTE, JOINT_PRISMATIC):
             n += 11 + 14                          # S.f and the torque terms
             n += 4                                # integrate
         else:                                     # free

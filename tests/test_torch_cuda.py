@@ -16,7 +16,12 @@ plain version's largest error in that env (check_against_f64).
 Both kernels are checked at E = 4096 (the main path), 1000 (a partial last
 block) and 1 (one env in a block of 16); two launches on the same inputs
 must give the same bits (no atomics); and at E = 4096 each kernel keeps at
-least 4 warps resident per SM.
+least 4 warps resident per SM. On Humanoid, Hopper and Cheetah both kernels
+are held at E = 4096 on a settled state with contacts active, against
+float64 by the rules of diffrl_tpu_torch/testing.py (check_kernel; on
+Humanoid with its floor: a q', qd' or dH entry there inherits the float32
+error of a 27-term sum whose terms are about 100 times it), with the
+occupancy and spill checks.
 """
 
 import pytest
@@ -25,7 +30,9 @@ import torch
 import diffrl_tpu_torch.envs as envs
 from diffrl_tpu_torch.sim import articulation_lb as lb
 from diffrl_tpu_torch.sim import substep_kernels as sk
-from diffrl_tpu_torch.testing import check_against_f64, check_vjp
+from diffrl_tpu_torch.testing import (F64_FLOOR, HUMANOID_FLOOR,
+                                     check_against_f64, check_kernel,
+                                     check_vjp)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +166,51 @@ def test_vjp_kernel_rejects_bad_inputs(cuda):
         sk.substep_vjp(env.model, q, qd, ja, torch.zeros((2, 64),
                                                          device=cuda),
                        1e-3, None, Hinv, gq, gqd)
+
+
+# substeps per env step (one mass-matrix period) and zero-action steps from
+# reset until ground contacts are active, as chip_smoke.py's MODELS
+_MJCF = {"Humanoid": (48, 12), "Hopper": (16, 8), "Cheetah": (16, 16)}
+
+
+@pytest.mark.parametrize("name", sorted(_MJCF))
+def test_kernels_match_plain_on_mjcf_models(cuda, name):
+    E = 4096
+    mm, settle = _MJCF[name]
+    env = envs.make(name, num_envs=E, stochastic_init=True,
+                    MM_caching_frequency=mm, device=cuda)
+    s = _settled(env, settle)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    acts = torch.rand((E, env.num_acts), generator=g, device=cuda) * 2 - 1
+    ja = env.action_to_controls(acts)[0].T.contiguous()
+    q, qd = s.joint_q.T.contiguous(), s.joint_qd.T.contiguous()
+    h = env.dt / env.sim_substeps
+    with torch.no_grad():
+        q1, qd1, H, Hinv = lb.refresh_substep_lb(env.model, q, qd, ja, None,
+                                                 h)
+    assert sk.active_contacts(env.model, q1) >= E
+    gq = torch.randn(q1.shape, generator=g, device=cuda)
+    gqd = torch.randn(qd1.shape, generator=g, device=cuda)
+    args = (env.model, q1, qd1, ja, None, h, H, Hinv)
+    d64 = [t.double() for t in (q1, qd1, ja)]
+    kf = sk.substep_forward(*args)
+    pf = lb.substep_lb(*args)
+    xf = lb.substep_lb(env.model, *d64, None, h, H.double(), Hinv.double())
+    kv = sk.substep_vjp(*args, gq, gqd)
+    pv = lb.substep_vjp_lb(*args, gq, gqd)
+    xv = lb.substep_vjp_lb(env.model, *d64, None, h,
+                           *(t.double() for t in (H, Hinv, gq, gqd)))
+    torch.cuda.synchronize()
+    floor = HUMANOID_FLOOR if name == "Humanoid" else F64_FLOOR
+    for lab, a, b, x, atol in (("q", kf[0], pf[0], xf[0], 2e-6),
+                               ("qd", kf[1], pf[1], xf[1], 2e-5)):
+        check_kernel(f"{name} {lab}", a, b, x, 2e-5, atol, floor)
+    for lab, a, b, x in zip(("dq", "dqd", "djoint_act", "dH"),
+                            kv[:3] + kv[4:], pv[:3] + pv[4:],
+                            xv[:3] + xv[4:]):
+        check_kernel(f"{name} {lab}", a, b, x, 2e-4, 1e-5, floor)
+    for kname in ("substep_forward", "substep_vjp"):
+        k = sk._prepare(kname, env.model, cuda, None)
+        assert k.built.spill_store_bytes == k.built.spill_load_bytes == 0
+        assert sk.kernel_attributes(k).resident(E)[1] >= 4.0

@@ -13,41 +13,32 @@ sim.substep_kernels and envs.base) against the JAX package, on the CPU.
   its plain version substep_vjp_lb at the same tolerances and against the
   plain version in float64 by diffrl_tpu_torch.testing's rule, at E = 32
   (whole blocks) and E = 37 (a partial block);
-- the window gradient of simulate_batched_lb against the JAX
-  simulate_batched_lb(reverse="replay") on Ant at E = 4, mm 4, 8 substeps
-  (tests/_lb_window_check.py's shape): values rtol 1e-4 atol 1e-5, grads
-  rtol 1e-3 atol 1e-4;
-- env.step's gradient of the summed reward w.r.t. actions and state with a
-  reset in the step, against JAX with sim_backward="lb";
+- (the window gradient and env.step's gradient against JAX are in
+  tests/test_torch_grad_window.py and test_torch_grad_env.py;)
 - grad_nan_guard zeroes a NaN cotangent;
 - the replay reverse pass runs again on a retained graph;
 - the tolerance rules of diffrl_tpu_torch.testing, and the adjoint launch's
   byte and operation counts.
 """
 
-import ctypes
-import os
-import shutil
-import subprocess
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import diffrl_tpu.envs as jenvs
-from diffrl_tpu.envs.base import EnvState as JState
 from diffrl_tpu.sim import articulation_lb as jlb
 
 import diffrl_tpu_torch.envs as tenvs
-from diffrl_tpu_torch.envs.base import EnvState as TState
 from diffrl_tpu_torch.envs.base import grad_nan_guard
 from diffrl_tpu_torch.sim import articulation_lb as tlb
 from diffrl_tpu_torch.sim import substep_kernels as sk
-from diffrl_tpu_torch.testing import check_against_f64, check_vjp
+from diffrl_tpu_torch.testing import (check_against_f64,
+                                     check_env_distribution, check_kernel,
+                                     check_vjp)
 
-HERE = os.path.dirname(__file__)
+from _torch_host_kernels import build_host_kernel
+
 H_ANT = 1.0 / 60.0 / 16
 VJP_TOL = dict(rtol=2e-4, atol=1e-5)
 
@@ -164,86 +155,6 @@ def test_substep_vjps_match_jax(ant, states, jax_vjps, which):
                                    atol=1e-7, err_msg=f"substep_vjp {lab}")
 
 
-def test_window_gradient_matches_jax(ant, states):
-    """simulate_batched_lb's replay reverse pass over two blocks (mm 4, 8
-    substeps: refresh replays and cached-substep VJPs) against JAX's."""
-    jm, tm = ant
-    E = 4
-    rs = np.random.RandomState(2)
-    q = states[0]["settled"][0][:, :E].T.copy()
-    q += rs.normal(0.0, 0.01, q.shape).astype(np.float32)
-    qd = rs.normal(0.0, 0.3, (E, tm.dof_count)).astype(np.float32)
-    ja = np.zeros((E, tm.dof_count), np.float32)
-    ja[:, 6:] = rs.uniform(-50.0, 50.0, (E, tm.dof_count - 6))
-    w_q = rs.normal(size=q.shape).astype(np.float32)
-    w_qd = rs.normal(size=qd.shape).astype(np.float32)
-    kw = dict(dt=1.0 / 60.0, substeps=8, mass_matrix_freq=4)
-
-    def jloss(a, b, c):
-        qn, qdn = jlb.simulate_batched_lb(jm, a, b, c, None, **kw)
-        return jnp.sum(qn * w_q) + jnp.sum(qdn * w_qd), (qn, qdn)
-
-    (_, (jq, jqd)), jg = jax.jit(jax.value_and_grad(
-        jloss, argnums=(0, 1, 2), has_aux=True))(q, qd, ja)
-    leaves = [x.requires_grad_() for x in _t(q, qd, ja)]
-    tq, tqd = tlb.simulate_batched_lb(tm, *leaves, None, **kw)
-    loss = torch.sum(tq * torch.as_tensor(w_q)) + torch.sum(
-        tqd * torch.as_tensor(w_qd))
-    launches = sk.substep_vjp.launches
-    tg = torch.autograd.grad(loss, leaves)
-    assert sk.substep_vjp.launches == launches    # plain version on CPU
-    np.testing.assert_allclose(tq.detach().numpy(), np.asarray(jq),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(tqd.detach().numpy(), np.asarray(jqd),
-                               rtol=1e-4, atol=1e-5)
-    for lab, a, b in zip(("dq", "dqd", "dja"), tg, jg):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3,
-                                   atol=1e-4, err_msg=f"window grad {lab}")
-
-
-def test_env_step_gradient_matches_jax():
-    """d/d(actions, joint_q, joint_qd) of sum(reward) + <w, obs> through one
-    env step in which env 0 terminates and env 3 hits the time limit (both
-    reset), JAX on its lb engine. Both sides cut the step to 4 substeps
-    (one refresh and 3 cached substeps) to keep JAX's compile time small."""
-    E = 4
-    kw = dict(num_envs=E, seed=0, MM_caching_frequency=4,
-              stochastic_init=False, episode_length=50)
-    je = jenvs.make("Ant", sim_backward="lb", **kw)
-    te = tenvs.make("Ant", device="cpu", **kw)
-    je.sim_substeps = te.sim_substeps = 4
-    rs = np.random.RandomState(3)
-    q = np.tile(np.asarray(te.model.joint_q_init), (E, 1))
-    q = (q + rs.uniform(-0.05, 0.05, q.shape)).astype(np.float32)
-    q[0, 1] = 0.2                         # below the termination height
-    qd = rs.uniform(-0.3, 0.3, (E, te.model.dof_count)).astype(np.float32)
-    act = rs.uniform(-0.9, 0.9, (E, 8)).astype(np.float32)
-    last = np.zeros((E, 8), np.float32)
-    progress = np.array([3, 5, 7, 49], np.int32)
-    w = rs.normal(size=(E, te.num_obs)).astype(np.float32)
-
-    def jloss(a, b, c):
-        s = JState(joint_q=b, joint_qd=c, actions=jnp.asarray(last),
-                   progress=jnp.asarray(progress), key=jax.random.PRNGKey(0))
-        _, obs, rew, done, _ = je.step(s, a)
-        return jnp.sum(rew) + jnp.sum(obs * w), done
-
-    (_, jdone), jg = jax.jit(jax.value_and_grad(
-        jloss, argnums=(0, 1, 2), has_aux=True))(act, q, qd)
-    leaves = [x.requires_grad_() for x in _t(act, q, qd)]
-    s = TState(leaves[1], leaves[2], torch.as_tensor(last),
-               torch.as_tensor(progress))
-    _, obs, rew, done, _ = te.step(s, leaves[0])
-    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
-    assert done.tolist() == [True, False, False, True]
-    tg = torch.autograd.grad(rew.sum() + torch.sum(obs * torch.as_tensor(w)),
-                             leaves)
-    for lab, a, b in zip(("actions", "joint_q", "joint_qd"), tg, jg):
-        assert np.isfinite(a.numpy()).all()
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3,
-                                   atol=1e-4, err_msg=f"env step grad {lab}")
-
-
 def test_simulate_options(ant):
     _, tm = ant
     q = torch.as_tensor(tm.joint_q_init)[None]
@@ -306,6 +217,34 @@ def test_vjp_check_rules():
     assert (n_k, n_p, need) == (0, 0, 0.0) and e_k == e_p > 0.0
 
 
+def test_check_kernel_and_env_distribution_rules():
+    """testing.check_kernel reports an entry where the kernel is off the
+    plain version and lets float64 decide: it passes where the plain
+    version is the one off, and fails where the kernel is.
+    check_env_distribution fails a kernel path whose error per env is ten
+    times the plain path's in most envs, and passes one chaotic env."""
+    exact = torch.tensor([[200.0, 1.0], [0.5, 0.25]], dtype=torch.float64)
+    kernel = exact.float()
+    plain = kernel.clone()
+    plain[1, 1] += 1e-2
+    err, n_off, _ = check_kernel("plain off", kernel, plain, exact, 2e-4,
+                                 1e-5)
+    assert n_off == 1 and err == pytest.approx(1e-2, rel=1e-3)
+    with pytest.raises(AssertionError, match="vs float64"):
+        check_kernel("kernel off", plain, kernel, exact, 2e-4, 1e-5)
+
+    rs = np.random.RandomState(0)
+    exact = torch.as_tensor(rs.normal(size=(5, 20)))
+    noise = torch.as_tensor(rs.uniform(1e-6, 2e-6, (5, 20)))
+    plain = exact + noise
+    chaotic = exact + noise
+    chaotic[2, 7] += 10.0                 # one env on a contact's other side
+    qs = check_env_distribution("one env", chaotic, plain, exact)
+    assert qs[0.5][0] == qs[0.5][1]
+    with pytest.raises(AssertionError, match="quantile 0.5"):
+        check_env_distribution("all envs", exact + 10 * noise, plain, exact)
+
+
 def test_vjp_launch_is_bound_by_bytes(ant):
     """One adjoint launch at E = 4096 moves 268 floats in and 239 out per
     env. The operations its function needs (the forward once, then the
@@ -326,66 +265,10 @@ def test_vjp_launch_is_bound_by_bytes(ant):
 # ---------------------------------------------------------------------------
 # the adjoint kernel's CUDA source, compiled for the host
 
-# every thread of a block runs a phase before the next phase starts
-_SHIM = """
-#include <math.h>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __constant__
-#define __shared__
-#define __syncwarp()
-#define __syncthreads()
-#define DRL_FOR_EACH_THREAD(t) for (int t = 0; t < (int)blockDim.x; ++t)
-#define DRL_COPY_TO_SHARED(dst, src) (*(dst) = *(src))
-#define DRL_COPY_COMMIT()
-#define DRL_COPY_WAIT_PRIOR()
-#define DRL_COPY_WAIT()
-struct Dim3 { int x; };
-static Dim3 blockIdx, blockDim, threadIdx;
-"""
-_HARNESS = """
-#include "substep_vjp.cuh"
-namespace drl {
-float drl_smem[kEnvsPerBlock * kVjpEnvWords + kConstCount];
-}
-extern "C" int const_count() { return drl::kConstCount; }
-extern "C" void run(const float* q, const float* qd, const float* ja,
-                    const float* hinv, const float* gq, const float* gqd,
-                    const float* consts, float* dq, float* dqd, float* dja,
-                    float* dh, int E, float dt) {
-  blockDim.x = drl::kBlockThreads;
-  for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
-    blockIdx.x = b;
-    drl::substep_vjp_kernel(q, qd, ja, hinv, gq, gqd, consts, dq, dqd, dja,
-                            dh, E, dt);
-  }
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_vjp(ant, tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    _, tm = ant
-    tmp = tmp_path_factory.mktemp("vjp")
-    header, consts = sk.kernel_tables(tm)
-    (tmp / "substep_topology.h").write_text(header)
-    (tmp / "shim.h").write_text(_SHIM)
-    (tmp / "harness.cpp").write_text(_HARNESS)
-    lib = tmp / "libhostvjp.so"
-    subprocess.run(
-        ["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-         "-include", str(tmp / "shim.h"), f"-I{tmp}",
-         f"-I{os.path.join(HERE, '..', 'diffrl_tpu_torch', 'csrc')}",
-         "-o", str(lib), str(tmp / "harness.cpp")],
-        check=True, capture_output=True, text=True, timeout=300)
-    so = ctypes.CDLL(str(lib))
-    so.run.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_float]
-    assert so.const_count() == consts.size
-    return so, consts
+    return build_host_kernel(ant[1], "substep_vjp",
+                             tmp_path_factory.mktemp("vjp"))
 
 
 @pytest.fixture(scope="module")
@@ -409,7 +292,6 @@ def host_states(ant):
 def test_vjp_kernel_source_matches_plain_on_host(ant, host_states, host_vjp,
                                                  which, E):
     _, tm = ant
-    so, consts = host_vjp
     (q, qd, ja), (gq, gqd) = host_states[0][which], host_states[1]
     q, qd, ja, gq, gqd = (np.ascontiguousarray(x[..., :E])
                           for x in (q, qd, ja, gq, gqd))
@@ -420,13 +302,7 @@ def test_vjp_kernel_source_matches_plain_on_host(ant, host_states, host_vjp,
     exact = tlb.substep_vjp_lb(tm, *(t.double() for t in (tq, tqd, tja)),
                                None, H_ANT, H.double(), Hinv.double(),
                                *(t.double() for t in _t(gq, gqd)))
-    ins = [np.ascontiguousarray(x) for x in (q, qd, ja, Hinv.numpy(), gq,
-                                              gqd)]
-    outs = [np.zeros_like(ins[0]), np.zeros_like(ins[1]),
-            np.zeros_like(ins[2]), np.zeros_like(ins[3])]
-    ptr = [a.ctypes.data_as(ctypes.c_void_p)
-           for a in (*ins, consts, *outs)]
-    so.run(*ptr, E, H_ANT)
+    outs = host_vjp(q, qd, ja, Hinv.numpy(), gq, gqd, dt=H_ANT)
     for lab, got, w, x in zip(("dq", "dqd", "dja", "dH"), outs,
                               want[:3] + want[4:], exact[:3] + exact[4:]):
         np.testing.assert_allclose(got, w.numpy(), **VJP_TOL,

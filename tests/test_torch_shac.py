@@ -9,7 +9,8 @@ small. Its weights, statistics and env state go into port trainers through
 utils.convert. Tolerances:
 - the window loss and the actor gradients through the simulator: rtol 1e-3,
   atol 1e-4 (two env steps of reassociated float32 physics, as the window
-  gradient in tests/test_torch_grad.py);
+  gradient in tests/test_torch_grad_window.py; that test is in
+  tests/test_torch_shac_window.py, with these trainers);
 - TD(lambda) targets: rtol/atol 1e-5 (the same recursion on the same
   inputs);
 - the critic update on JAX's permutations: rtol/atol 1e-5;
@@ -85,35 +86,6 @@ def jtrainer(tmp_path_factory):
 def _close(a, b, **tol):
     np.testing.assert_allclose(torch.as_tensor(a).detach().numpy(),
                                np.asarray(b), **tol)
-
-
-def test_window_loss_and_actor_grads_match_jax(jtrainer, tmp_path):
-    jt = jtrainer
-    tt = _port(_cfg(tmp_path), jt)
-
-    def loss(ap):
-        return jt._rollout(ap, jt.target_critic_params, jt.env_state,
-                           jt.obs_rms, jt.ret_rms, jt.episode_trackers,
-                           jax.random.PRNGKey(1), True)
-
-    (jloss, aux), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        jt.actor_params)
-    tloss, outs = tt.rollout(deterministic=True)
-    tloss.backward()
-    tol = dict(rtol=1e-3, atol=1e-4)
-    _close(tloss, jloss, **tol)
-    for name, p, g in param_pairs(tt.actor, jax.device_get(jgrads)):
-        grad = p.grad if p.grad is not None else torch.zeros_like(p)
-        _close(grad, g, err_msg=name, **tol)
-    for k in ("obs", "rew", "next_value"):
-        _close(outs[k], aux["outs"][k], err_msg=k, **tol)
-    np.testing.assert_array_equal(outs["done"].numpy(),
-                                  np.asarray(aux["outs"]["done"]))
-    # the live statistics moved on; the window used the frozen ones
-    _close(tt.obs_rms.mean, aux["obs_rms"].mean, rtol=1e-5, atol=1e-5)
-    _close(tt.obs_rms.var, aux["obs_rms"].var, rtol=1e-4, atol=1e-5)
-    _close(tt.obs_rms.count, aux["obs_rms"].count, rtol=0, atol=0)
-    _close(tt.env_state.joint_q, aux["env_state"].joint_q, **tol)
 
 
 def test_td_lambda_targets_match_jax(jtrainer, tmp_path):

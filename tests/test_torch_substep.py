@@ -22,10 +22,7 @@ against the JAX package, on the CPU.
 """
 
 import dataclasses
-import ctypes
 import os
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +40,7 @@ from diffrl_tpu_torch.sim import substep_kernels as sk
 from diffrl_tpu_torch.sim.model import (JOINT_BALL, JOINT_PRISMATIC,
                                         JOINT_REVOLUTE, ModelBuilder)
 
+from _torch_host_kernels import build_host_kernel
 from test_pallas import _pendulum_ground
 
 HERE = os.path.dirname(__file__)
@@ -215,10 +213,9 @@ def _header_tables(header):
     return out
 
 
-def test_kernel_tables_team_layout(ant):
+def assert_table_invariants(tm):
     """The level spans, children and contact lists the kernels sweep by,
-    and the team size and shared-memory slots the header states."""
-    _, tm = ant
+    against the engine plan; returns the header's tables."""
     header, _ = sk.kernel_tables(tm)
     plan = tlb._plan_for(tm, "cpu")
     t = _header_tables(header)
@@ -249,6 +246,14 @@ def test_kernel_tables_team_layout(ant):
         assert kl[ks[r]:ks[r + 1]] == np.nonzero(
             plan.contact_rows == r)[0].tolist()
     assert t["NCHILD"] == len(ch) == cs[-1] == sum(p >= 0 for p in parent)
+    return t
+
+
+def test_kernel_tables_team_layout(ant):
+    """The level spans, children and contact lists the kernels sweep by,
+    and the team size and shared-memory slots the header states."""
+    _, tm = ant
+    t = assert_table_invariants(tm)
     # Ant: levels of 1, 4 and 4 links, 14 dofs: T = 8, 16 envs per
     # 128-thread block
     lay = sk.team_layout(tm)
@@ -261,85 +266,26 @@ def test_kernel_tables_team_layout(ant):
     assert lay.const_words == consts.size
     assert lay.smem_bytes("substep_forward") == (16 * 697 + consts.size) * 4
     assert lay.smem_bytes("substep_vjp") == (16 * 1571 + consts.size) * 4
-    # the pendulum: one link, a team of one
+    # the pendulum: one link, the smallest team (8 lanes, so that 4096
+    # envs still give every SM of an H100 several warps)
     pl = sk.team_layout(_port_pendulum())
-    assert (pl.threads_per_env, pl.envs_per_block) == (1, 128)
-
-
-# every thread of a block runs a phase before the next phase starts
-_SHIM = """
-#include <math.h>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __constant__
-#define __shared__
-#define __syncwarp()
-#define __syncthreads()
-#define DRL_FOR_EACH_THREAD(t) for (int t = 0; t < (int)blockDim.x; ++t)
-#define DRL_COPY_TO_SHARED(dst, src) (*(dst) = *(src))
-#define DRL_COPY_COMMIT()
-#define DRL_COPY_WAIT_PRIOR()
-#define DRL_COPY_WAIT()
-struct Dim3 { int x; };
-static Dim3 blockIdx, blockDim, threadIdx;
-"""
-_HARNESS = """
-#include "substep_forward.cuh"
-namespace drl {
-float drl_smem[kEnvsPerBlock * kFwdEnvWords + kConstCount];
-}
-extern "C" int const_count() { return drl::kConstCount; }
-extern "C" void run(const float* q, const float* qd, const float* ja,
-                    const float* hinv, const float* consts, float* q_out,
-                    float* qd_out, int E, float dt) {
-  blockDim.x = drl::kBlockThreads;
-  for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
-    blockIdx.x = b;
-    drl::substep_forward_kernel(q, qd, ja, hinv, consts, q_out, qd_out, E,
-                                dt);
-  }
-}
-"""
+    assert (pl.threads_per_env, pl.envs_per_block) == (8, 16)
 
 
 @pytest.fixture(scope="module")
 def host_forward(ant, tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    _, tm = ant
-    tmp = tmp_path_factory.mktemp("forward")
-    header, consts = sk.kernel_tables(tm)
-    (tmp / "substep_topology.h").write_text(header)
-    (tmp / "shim.h").write_text(_SHIM)
-    (tmp / "harness.cpp").write_text(_HARNESS)
-    lib = tmp / "libhost.so"
-    subprocess.run(
-        ["g++", "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-         "-include", str(tmp / "shim.h"), f"-I{tmp}",
-         f"-I{os.path.join(HERE, '..', 'diffrl_tpu_torch', 'csrc')}",
-         "-o", str(lib), str(tmp / "harness.cpp")],
-        check=True, capture_output=True, text=True, timeout=120)
-    so = ctypes.CDLL(str(lib))
-    so.run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_float]
-    assert so.const_count() == consts.size
-    return so, consts
+    return build_host_kernel(ant[1], "substep_forward",
+                             tmp_path_factory.mktemp("forward"))
 
 
 @pytest.mark.parametrize("E", [32, 37])
 def test_kernel_source_matches_plain_on_host(ant, host_forward, E):
     _, tm = ant
-    so, consts = host_forward
     q, qd, ja = _ant_inputs(tm, E, seed=5)
     tq, tqd, tja = map(torch.as_tensor, (q, qd, ja))
     q1, qd1, H, Hinv = tlb.refresh_substep_lb(tm, tq, tqd, tja, None, H_ANT)
     want_q, want_qd = tlb.substep_lb(tm, q1, qd1, tja, None, H_ANT, H, Hinv)
-    args = [np.ascontiguousarray(x.numpy()) for x in (q1, qd1, tja, Hinv)]
-    got_q = np.zeros_like(args[0])
-    got_qd = np.zeros_like(args[1])
-    ptr = [a.ctypes.data_as(ctypes.c_void_p)
-           for a in (*args, consts, got_q, got_qd)]
-    so.run(*ptr, E, H_ANT)
+    got_q, got_qd = host_forward(*(x.numpy() for x in (q1, qd1, tja, Hinv)),
+                                 dt=H_ANT)
     np.testing.assert_allclose(got_q, want_q.numpy(), rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(got_qd, want_qd.numpy(), rtol=2e-5, atol=2e-5)
