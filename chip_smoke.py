@@ -9,52 +9,66 @@ raises and the script exits non-zero:
 1. device  -- needs CUDA; prints the card's name and power limit
               (nvidia-smi).
 2. build   -- builds the cached-substep forward kernel (K1) and its adjoint
-              kernel (K2) for Ant, Humanoid, Hopper and Cheetah, and K1 for
-              a prismatic + revolute model, from csrc/ with nvcc for sm_90a,
+              kernel (K2) for Ant, Humanoid, Hopper, Cheetah, CartPole and
+              SNU Humanoid, and K1 for a prismatic + revolute model, from
+              csrc/ with nvcc for sm_90a,
               one nvcc process per library, all started together: seconds,
               registers per thread, spill and stack bytes; threads per env,
               envs per block, shared memory per block, and the blocks and
               warps resident per SM at E = 4096 (the card's occupancy query
               and the grid). Fails on spills and under 4 warps per SM.
 3. kernel  -- per model at E = 4096 on a settled state with ground contacts
-              active: one cached substep, K1 against its plain version
-              substep_lb and float64 (q rtol 2e-5 atol 2e-6, qd rtol 2e-5
-              atol 2e-5), and one whole env step (Ant, Hopper, Cheetah 16
-              substeps, mm 16; Humanoid 48, mm 48), kernel path against
+              active (CartPole has no ground; SNU Humanoid's muscles at
+              activations in (0, 1) x strength): one cached substep, K1
+              against its plain version substep_lb and float64 (q rtol 2e-5
+              atol 2e-6, qd rtol 2e-5 atol 2e-5), and one whole env step
+              (Ant, Hopper, Cheetah 16 substeps, mm 16; Humanoid 48, mm 48;
+              CartPole 4, mm 4; SNU Humanoid 48, mm 8), kernel path against
               plain path and float64 (rtol/atol 1e-4); plus the prismatic +
               revolute model without ground (K1 elementwise).
 4. adjoint -- per model on the same state: one cached substep, K2 against
               its plain version substep_vjp_lb and float64 (rtol 2e-4, atol
-              1e-5); the env step's gradient of a fixed weighted sum of
-              (q', qd') w.r.t. (q, qd, joint_act), kernel path against
-              plain path and float64 (rtol 1e-3, atol 1e-4).
+              1e-5), the muscle activations' cotangent dma included; the
+              env step's gradient of a fixed weighted sum of (q', qd')
+              w.r.t. (q, qd, joint_act, muscle activations), kernel path
+              against plain path and float64 (rtol 1e-3, atol 1e-4).
               The rules are diffrl_tpu_torch/testing.py's: entry by entry
               no further from float64 than twice the float32 plain
-              version's error plus rtol and a floor (8, Humanoid 90) times
+              version's error plus rtol and a floor (8, Humanoid 90, SNU
+              Humanoid 60) times
               the plain version's largest error in that env, the distance
-              to the plain version reported; a whole Humanoid env step,
+              to the plain version reported; an env that meets the rule
+              only against the float64 answer at a state within float32
+              rounding of the inputs is at a select's boundary, counted
+              apart (testing.near_f64); a whole Humanoid env step,
               chaotic in float32, per env at the median and the 90th
-              percentile, at most twice the plain path's error.
+              percentile, at most twice the plain path's error (SNU
+              Humanoid's whole step too).
 5. fixture -- the kernel path against the dflex golden trajectories
               tests/fixtures/env_ant_mjcf.npz (40 steps of 16 substeps;
-              atol 1e-5 on the first 15, 1e-4 on all) and
+              atol 1e-5 on the first 15, 1e-4 on all),
               env_humanoid_mjcf.npz (16 steps of 48 substeps, mm 48; atol
-              1e-4 on the first 15, 1e-3 on all).
+              1e-4 on the first 15, 1e-3 on all), env_cartpole_urdf.npz (60
+              steps of 4 substeps, mm 4; 1e-5 and 1e-4) and
+              env_snu_muscles.npz (16 steps of 48 substeps, mm 48, the 152
+              muscles at 0.05 of their peak force; 1e-4 and 1e-3).
 6. main    -- the rollout path: Ant with 4096 envs, mm 16, stochastic init,
               the SHAC Ant actor (128/64/32, ELU + LayerNorm) and obs_rms,
               batched_eval for 64 env steps of deterministic actions.
 7. train   -- the training paths: SHAC(cfg).train() from
-              examples/cfg/shac/{ant,humanoid,hopper,cheetah}.yaml at 4096
-              envs x 32 steps (Ant and Humanoid 2 epochs, Hopper and Cheetah
-              1); K1 and K2 launch epochs x 32 x (mm - 1) times each
-              (Humanoid 2 x 32 x 47 = 3,008); seconds per epoch, training
-              env-steps/s, peak memory, finite losses, a changed actor; one
-              more epoch of Ant and of Humanoid split into its phases.
+              examples/cfg/shac/{ant,humanoid,hopper,cheetah,
+              cartpole_swing_up,snu_humanoid}.yaml at 4096 envs x 32 steps
+              (Ant and Humanoid 2 epochs, the others 1); K1 and K2 launch
+              epochs x 32 x (substeps / mm) x (mm - 1) times each (Humanoid
+              2 x 32 x 47 = 3,008; CartPole 32 x 3 = 96; SNU Humanoid 32 x
+              6 x 7 = 1,344); seconds per epoch, training env-steps/s, peak
+              memory, finite losses, a changed actor; one more epoch of
+              Ant, Humanoid and SNU Humanoid split into its phases.
 8. timing  -- per model, device time per launch of both kernels (CUDA
               events with the host queued ahead), per-call times, the plain
-              versions as CUDA graphs; for Ant and Humanoid the refresh
-              substep and its replay; bench.py-style random-action
-              env-steps/s on Ant.
+              versions as CUDA graphs; for Ant, Humanoid and SNU Humanoid
+              the refresh substep and its replay; bench.py-style
+              random-action env-steps/s on Ant.
 
 Before the last line it prints the nvidia-smi line and one JSON line with
 each kernel's launches per model (in its training path), errors, times,
@@ -65,6 +79,7 @@ bound, threads per env and warps per SM; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -79,27 +94,48 @@ import numpy as np
 import torch
 
 E = 4096
-# the models on the port's paths: substeps per env step (all of them one
-# mass-matrix period), zero-action env steps from env.reset() until ground
-# contacts are active, and training epochs from examples/cfg/shac/<cfg>
+# the models on the port's paths: substeps per env step and the mass-matrix
+# period of each config, zero-action env steps from env.reset() until
+# ground contacts are active (CartPole has no ground), and training epochs
+# from examples/cfg/shac/<cfg>
 MODELS = {
-    "Ant": dict(mm=16, settle=14, cfg="ant.yaml", epochs=2),
-    "Humanoid": dict(mm=48, settle=12, cfg="humanoid.yaml", epochs=2),
-    "Hopper": dict(mm=16, settle=8, cfg="hopper.yaml", epochs=1),
-    "Cheetah": dict(mm=16, settle=16, cfg="cheetah.yaml", epochs=1),
+    "Ant": dict(substeps=16, mm=16, settle=14, cfg="ant.yaml", epochs=2),
+    "Humanoid": dict(substeps=48, mm=48, settle=12, cfg="humanoid.yaml",
+                     epochs=2),
+    "Hopper": dict(substeps=16, mm=16, settle=8, cfg="hopper.yaml",
+                   epochs=1),
+    "Cheetah": dict(substeps=16, mm=16, settle=16, cfg="cheetah.yaml",
+                    epochs=1),
+    "CartPoleSwingUp": dict(substeps=4, mm=4, settle=4,
+                            cfg="cartpole_swing_up.yaml", epochs=1),
+    "SNUHumanoid": dict(substeps=48, mm=8, settle=6, cfg="snu_humanoid.yaml",
+                        epochs=1),
 }
+# the models whose epoch is split into its phases and whose refresh is timed
+SPLIT = ("Ant", "Humanoid", "SNUHumanoid")
 MM = MODELS["Ant"]["mm"]
 SETTLE_STEPS = MODELS["Ant"]["settle"]
 EVAL_STEPS = 64
 TRAIN_STEPS = 32
 BENCH_WARMUP, BENCH_STEPS = 5, 50
-# the dflex golden trajectories: file, substeps (= mm) per step, constant
-# joint torques on the actuated dofs, atol on the first 15 steps and on all
+# timed runs device_ms makes before it gives up on getting the host ahead
+DEVICE_MS_TRIES = 6
+# the dflex golden trajectories (tests/parity_scenes.py): file, substeps
+# (= mm) per step, the constant joint torques [D], the constant muscle
+# activations of the env (or None), atol on the first 15 steps and on all
 FIXTURES = {
-    "Ant": ("env_ant_mjcf.npz", 16, lambda n: 40.0 * np.sin(np.arange(n)),
-            1e-5, 1e-4),
+    "Ant": ("env_ant_mjcf.npz", 16,
+            lambda D: np.r_[np.zeros(6), 40.0 * np.sin(np.arange(D - 6))],
+            None, 1e-5, 1e-4),
     "Humanoid": ("env_humanoid_mjcf.npz", 48,
-                 lambda n: 25.0 * np.sin(np.arange(n)), 1e-4, 1e-3),
+                 lambda D: np.r_[np.zeros(6), 25.0 * np.sin(np.arange(D - 6))],
+                 None, 1e-4, 1e-3),
+    "CartPoleSwingUp": ("env_cartpole_urdf.npz", 4,
+                        lambda D: np.r_[120.0, np.zeros(D - 1)], None, 1e-5,
+                        1e-4),
+    "SNUHumanoid": ("env_snu_muscles.npz", 48, np.zeros,
+                    lambda env: [0.05 * m.peak_force
+                                 for m in env.skeleton.muscles], 1e-4, 1e-3),
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside
 # the tensor cores
@@ -143,15 +179,17 @@ def device_ms(fn, n, warmup=3):
     """Device milliseconds per call of n back-to-back calls, with the host
     queued ahead: the device first spins (torch.cuda._sleep) for twice the
     time the host takes to issue the n calls, so the events time the work on
-    the device and not the host's launch overhead. Raises if the host did
-    not get ahead."""
+    the device and not the host's launch overhead. When the device caught
+    up all the same (a host slowed by other work), it tries again with a
+    head start at least twice as long and twice the slowest issue seen, up
+    to DEVICE_MS_TRIES times. Raises if the host never got ahead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    head_ms = 2.0 * (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -159,16 +197,21 @@ def device_ms(fn, n, warmup=3):
     torch.cuda._sleep(10 ** 6)
     b.record()
     torch.cuda.synchronize()
-    cycles = int(2.0 * host_ms / a.elapsed_time(b) * 10 ** 6) + 10 ** 6
-    torch.cuda._sleep(cycles)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    if b.query():
-        raise RuntimeError("device_ms: the device caught up with the host")
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    per_cycle = a.elapsed_time(b) / 10 ** 6
+    for _ in range(DEVICE_MS_TRIES):
+        torch.cuda._sleep(int(head_ms / per_cycle) + 10 ** 6)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        caught_up = b.query()
+        torch.cuda.synchronize()
+        if not caught_up:
+            return a.elapsed_time(b) / n
+        head_ms = 2.0 * max(head_ms, 2.0 * issue_ms)
+    raise RuntimeError("device_ms: the device caught up with the host")
 
 
 def graph_ms(fn, reps=10):
@@ -203,14 +246,15 @@ def assert_close(name, got, want, rtol, atol):
     return float(np.max(np.abs(got - want))) if got.size else 0.0
 
 
-def plain_step(model, q, qd, ja, h, mm, substeps):
-    """One env step on the plain path only: refresh + (mm - 1) substep_lb."""
+def plain_step(model, q, qd, ja, ma, h, mm, substeps):
+    """One env step on the plain path only: per mass-matrix period, a
+    refresh + (mm - 1) substep_lb (env-minor inputs; ma may be None)."""
     from diffrl_tpu_torch.sim.articulation_lb import (refresh_substep_lb,
                                                       substep_lb)
     for _ in range(substeps // mm):
-        q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, None, h)
+        q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
         for _ in range(mm - 1):
-            q, qd = substep_lb(model, q, qd, ja, None, h, H, Hinv)
+            q, qd = substep_lb(model, q, qd, ja, ma, h, H, Hinv)
     return q, qd
 
 
@@ -224,21 +268,33 @@ def settled_state(env, steps):
     return s
 
 
-def step_grad(model, q, qd, ja, w_q, w_qd, mm, substeps, plain):
-    """d/d(q, qd, joint_act) of <w_q, q'> + <w_qd, qd'> over one env step
-    (env-leading [E, .] inputs), through simulate_batched_lb (K1 forward,
-    K2 reverse) or, with ``plain``, autograd through refresh_substep_lb and
-    substep_lb alone."""
+def controls(env, acts):
+    """(joint_act [E, D], muscle activations [E, M] or None) of actions: a
+    model driven by muscles alone gets zero joint torques, as the
+    simulator fills them in."""
+    ja, ma = env.action_to_controls(acts)
+    if ja is None:
+        ja = acts.new_zeros((acts.shape[0], env.model.dof_count))
+    return ja, ma
+
+
+def step_grad(model, q, qd, ja, ma, w_q, w_qd, mm, substeps, plain):
+    """d/d(q, qd, joint_act[, muscle activations]) of <w_q, q'> +
+    <w_qd, qd'> over one env step (env-leading [E, .] inputs), through
+    simulate_batched_lb (K1 forward, K2 reverse) or, with ``plain``,
+    autograd through refresh_substep_lb and substep_lb alone."""
     from diffrl_tpu_torch.sim.articulation_lb import simulate_batched_lb
-    leaves = [x.detach().clone().requires_grad_() for x in (q, qd, ja)]
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (q, qd, ja, ma) if x is not None]
+    lm = leaves[3] if ma is not None else None
     with torch.enable_grad():
         if plain:
             qt, qdt = plain_step(model, leaves[0].T, leaves[1].T,
-                                 leaves[2].T, 1.0 / 60.0 / substeps, mm,
-                                 substeps)
+                                 leaves[2].T, None if lm is None else lm.T,
+                                 1.0 / 60.0 / substeps, mm, substeps)
             qn, qdn = qt.T, qdt.T
         else:
-            qn, qdn = simulate_batched_lb(model, *leaves, None,
+            qn, qdn = simulate_batched_lb(model, *leaves[:3], lm,
                                           dt=1.0 / 60.0, substeps=substeps,
                                           mass_matrix_freq=mm)
         loss = torch.sum(qn * w_q) + torch.sum(qdn * w_qd)
@@ -263,70 +319,83 @@ def prismatic_model():
     return dataclasses.replace(b.finalize(), ground=False)
 
 
-def hold(name, what, got, plain, exact, rtol, atol, whole_step=False):
+def hold(name, what, got, plain, exact, rtol, atol, whole_step=False,
+         near=None):
     """A kernel's output against its plain version and float64 by the rules
-    of diffrl_tpu_torch/testing.py: check_kernel (Humanoid with its own
-    floor), and for a whole Humanoid env step, whose float32 results are
-    chaotic, check_env_distribution. Returns (max |got - plain|, a summary:
-    entries off the plain version by check_vjp's bound, entries outside
-    rtol/atol vs float64 kernel/plain, max error vs float64 kernel/plain,
-    least floor of the float64 rule; or the per-env error quantiles)."""
-    from diffrl_tpu_torch.testing import (F64_FLOOR, HUMANOID_FLOOR,
-                                          check_env_distribution,
-                                          check_kernel)
+    of diffrl_tpu_torch/testing.py: check_kernel (with the model's floor,
+    and ``near`` for the envs at a select's boundary), and for a whole
+    Humanoid or SNU Humanoid env step, whose float32 results are chaotic,
+    check_env_distribution. Returns (max |got - plain|, a summary: entries
+    off the plain version by check_vjp's bound, entries outside rtol/atol
+    vs float64 kernel/plain, max error vs float64 kernel/plain, least floor
+    of the float64 rule, envs at a select's boundary; or the per-env error
+    quantiles)."""
+    from diffrl_tpu_torch.testing import (check_env_distribution,
+                                          check_kernel, f64_floor)
 
-    if whole_step and name == "Humanoid":
+    if whole_step and name in ("Humanoid", "SNUHumanoid"):
         qs = check_env_distribution(f"{name} {what}", got, plain, exact)
         return float((got - plain).abs().max()), f"{what} per-env error " \
             "kernel/plain " + ", ".join(f"q{q:g} {k:.2e}/{p:.2e}"
                                         for q, (k, p) in qs.items())
-    floor = HUMANOID_FLOOR if name == "Humanoid" else F64_FLOOR
-    err, off, (a, b, c, d, n) = check_kernel(f"{name} {what}", got, plain,
-                                             exact, rtol, atol, floor)
-    return err, f"{what} {off} {a}/{b} {c:.2e}/{d:.2e} {n:.1e}"
+    err, off, (a, b, c, d, n, nb) = check_kernel(
+        f"{name} {what}", got, plain, exact, rtol, atol, f64_floor(name),
+        near)
+    return err, f"{what} {off} {a}/{b} {c:.2e}/{d:.2e} {n:.1e} {nb}"
 
 
 def check_model(name, env, gen):
     """K1 and K2 against their plain versions on ``env`` (E envs) at a
-    settled state with ground contacts active, and one whole env step's
-    values and gradient, kernel path against plain path. Returns what the
-    timing phase reuses and the largest errors."""
+    settled state with ground contacts active (where the model has a
+    ground), and one whole env step's values and gradient, kernel path
+    against plain path. Returns what the timing phase reuses and the
+    largest errors."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
     from diffrl_tpu_torch.sim import substep_kernels as sk
+    from diffrl_tpu_torch.testing import near_f64
 
     model, mm = env.model, MODELS[name]["mm"]
     substeps = env.sim_substeps
     h = env.dt / substeps
+    K = len(lb._plan_for(model, env.device).contact_rows)
     s1 = settled_state(env, MODELS[name]["settle"])
     acts = torch.rand((E, env.num_acts), generator=gen,
                       device=env.device) * 2 - 1
-    ja, _ = env.action_to_controls(acts)
+    ja, ma = controls(env, acts)
     jat = ja.T.contiguous()
+    mat = ma.T.contiguous() if ma is not None else None
     q, qd = s1.joint_q.T.contiguous(), s1.joint_qd.T.contiguous()
+
+    def f64(*xs):
+        return [None if x is None else x.double() for x in xs]
+
     with torch.no_grad():
-        q1, qd1, H, Hinv = lb.refresh_substep_lb(model, q, qd, jat, None, h)
+        q1, qd1, H, Hinv = lb.refresh_substep_lb(model, q, qd, jat, mat, h)
         n_active = sk.active_contacts(model, q1)
-        if n_active < E:
+        if K and n_active < E:
             raise RuntimeError(f"{name}: only {n_active} ground contacts "
                                f"active over {E} envs: not settled")
-        fargs = (model, q1, qd1, jat, None, h, H, Hinv)
+        fargs = (model, q1, qd1, jat, mat, h, H, Hinv)
         n0 = sk.substep_forward.launches
         kf = sk.substep_forward(*fargs)
         if sk.substep_forward.launches != n0 + 1:
             raise RuntimeError("substep_forward did not launch its kernel")
         pf = lb.substep_lb(*fargs)
-        xf = lb.substep_lb(model, *(t.double() for t in (q1, qd1, jat)),
-                           None, h, H.double(), Hinv.double())
+        xf = lb.substep_lb(model, *f64(q1, qd1, jat, mat), h,
+                           *f64(H, Hinv))
         sq, sqd = lb.simulate_batched_lb(
-            model, s1.joint_q, s1.joint_qd, ja, None, dt=env.dt,
+            model, s1.joint_q, s1.joint_qd, ja, ma, dt=env.dt,
             substeps=substeps, mass_matrix_freq=mm)
-        rs = plain_step(model, q, qd, jat, h, mm, substeps)
-        xs = plain_step(model, *(t.double() for t in (q, qd, jat)), h, mm,
-                        substeps)
+        rs = plain_step(model, q, qd, jat, mat, h, mm, substeps)
+        xs = plain_step(model, *f64(q, qd, jat, mat), h, mm, substeps)
     torch.cuda.synchronize()
-    fwd = [hold(name, f"substep {lab}", k, p, x, 2e-5, atol)
-           for lab, k, p, x, atol in (("q", kf[0], pf[0], xf[0], 2e-6),
-                                      ("qd", kf[1], pf[1], xf[1], 2e-5))]
+    near = near_f64(lambda q_, qd_: lb.substep_lb(
+        model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv)), q1, qd1)
+    fwd = [hold(name, f"substep {lab}", k, p, x, 2e-5, atol,
+                near=functools.partial(near, i))
+           for i, (lab, k, p, x, atol) in enumerate((
+               ("q", kf[0], pf[0], xf[0], 2e-6),
+               ("qd", kf[1], pf[1], xf[1], 2e-5)))]
     step = [hold(name, f"step {lab}", k, p, x, 1e-4, 1e-4, whole_step=True)
             for lab, k, p, x in (("q", sq.T, rs[0], xs[0]),
                                  ("qd", sqd.T, rs[1], xs[1]))]
@@ -335,7 +404,8 @@ def check_model(name, env, gen):
           f"one cached substep K1 vs plain max err {err_fwd:.3e}; per "
           f"output: entries off the plain version by check_vjp's bound, vs "
           f"float64 entries outside rtol 2e-5 atol 2e-6/2e-5 kernel/plain, "
-          f"max err kernel/plain, least floor of the 2x-plain rule: "
+          f"max err kernel/plain, least floor of the 2x-plain rule, envs "
+          f"at a select's boundary: "
           + "; ".join(t for _, t in fwd) + f" | one env step ({substeps} "
           f"substeps, mm {mm}) kernel path vs plain max err "
           f"{max(e for e, _ in step):.3e}; vs float64: "
@@ -343,39 +413,40 @@ def check_model(name, env, gen):
 
     gq = torch.randn(q1.shape, generator=gen, device=env.device)
     gqd = torch.randn(qd1.shape, generator=gen, device=env.device)
-    vargs = (model, q1, qd1, jat, None, h, H, Hinv, gq, gqd)
+    vargs = (model, q1, qd1, jat, mat, h, H, Hinv, gq, gqd)
     n0 = sk.substep_vjp.launches
     kv = sk.substep_vjp(*vargs)
     if sk.substep_vjp.launches != n0 + 1:
         raise RuntimeError("substep_vjp did not launch its kernel")
     pv = lb.substep_vjp_lb(*vargs)
-    xv = lb.substep_vjp_lb(model, *(t.double() for t in (q1, qd1, jat)),
-                           None, h, *(t.double() for t in (H, Hinv, gq,
-                                                            gqd)))
+    xv = lb.substep_vjp_lb(model, *f64(q1, qd1, jat, mat), h,
+                           *f64(H, Hinv, gq, gqd))
     torch.cuda.synchronize()
-    vjp = [hold(name, f"substep_vjp {lab}", kx, px, xx, 2e-4, 1e-5)
-           for lab, kx, px, xx in zip(("dq", "dqd", "djoint_act", "dH"),
-                                      kv[:3] + kv[4:], pv[:3] + pv[4:],
-                                      xv[:3] + xv[4:])]
+    near = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
+        model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv, gq, gqd)), q1, qd1)
+    labs = ("dq", "dqd", "djoint_act", "dma", "dH")
+    vjp = [hold(name, f"substep_vjp {lab}", kx, px, xx, 2e-4, 1e-5,
+                near=functools.partial(near, i))
+           for i, (lab, kx, px, xx) in enumerate(zip(labs, kv, pv, xv))
+           if kx is not None]
     err_vjp = max(e for e, _ in vjp)
     w_q = torch.randn(s1.joint_q.shape, generator=gen, device=env.device)
     w_qd = torch.randn(s1.joint_qd.shape, generator=gen, device=env.device)
-    gargs = (s1.joint_q, s1.joint_qd, ja, w_q, w_qd, mm, substeps)
+    gargs = (s1.joint_q, s1.joint_qd, ja, ma, w_q, w_qd, mm, substeps)
     n0 = sk.substep_vjp.launches
     kg = step_grad(model, *gargs, plain=False)
-    if sk.substep_vjp.launches - n0 != mm - 1:
+    want = (substeps // mm) * (mm - 1)
+    if sk.substep_vjp.launches - n0 != want:
         raise RuntimeError(f"{name}: the env step's reverse pass launched "
                            f"substep_vjp {sk.substep_vjp.launches - n0} "
-                           f"times, expected {mm - 1}")
+                           f"times, expected {want}")
     pg = step_grad(model, *gargs, plain=True)
-    xg = step_grad(model, *(t.double() for t in gargs[:5]), mm, substeps,
-                   plain=True)
+    xg = step_grad(model, *f64(*gargs[:6]), mm, substeps, plain=True)
     torch.cuda.synchronize()
     grad = [hold(name, f"env step {lab}", kx.T, px.T, xx.T, 1e-3, 1e-4,
                  whole_step=True)
-            for lab, kx, px, xx in zip(("dq", "dqd", "djoint_act"), kg, pg,
-                                       xg)]
-    K = len(lb._plan_for(model, env.device).contact_rows)
+            for lab, kx, px, xx in zip(("dq", "dqd", "djoint_act", "dma"),
+                                       kg, pg, xg)]
     phase("adjoint", f"{name} E={E}, {n_active} of {E * K} contacts "
           f"active: one cached substep K2 vs plain max err {err_vjp:.3e}; "
           f"per output as in the kernel line (rtol 2e-4 atol 1e-5): "
@@ -387,28 +458,29 @@ def check_model(name, env, gen):
                 err_fwd=err_fwd, err_vjp=err_vjp)
 
 
-def check_fixture(name, model, dev):
+def check_fixture(name, env, dev):
     """The kernel path (E = 1) against the dflex golden trajectory of
-    ``name``: the fixture scene keeps the builder's gravity (-9.8) and
-    constant torques on the actuated dofs."""
+    ``name``: the fixture scene keeps the builder's gravity (-9.8), constant
+    joint torques and, for SNU Humanoid, constant muscle activations."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
     from diffrl_tpu_torch.sim import substep_kernels as sk
 
-    fname, ss, torques, early, full = FIXTURES[name]
+    fname, ss, torques, muscles, early, full = FIXTURES[name]
+    model = env.model
     fix = np.load(os.path.join(ROOT, "tests", "fixtures", fname))
     fmodel = dataclasses.replace(
         model, gravity=np.array([0.0, -9.8, 0.0], np.float32))
     D = model.dof_count
     fq = torch.as_tensor(model.joint_q_init, device=dev)[None]
     fqd = torch.zeros((1, D), device=dev)
-    fja = torch.zeros((1, D), device=dev)
-    fja[0, 6:] = torch.as_tensor(torques(D - 6), dtype=torch.float32,
-                                 device=dev)
+    fja = torch.as_tensor(torques(D), dtype=torch.float32, device=dev)[None]
+    fma = None if muscles is None else torch.as_tensor(
+        muscles(env), dtype=torch.float32, device=dev)[None]
     traj = []
     launches0 = sk.substep_forward.launches
     with torch.no_grad():
         for _ in range(fix["joint_q"].shape[0]):
-            fq, fqd = lb.simulate_batched_lb(fmodel, fq, fqd, fja, None,
+            fq, fqd = lb.simulate_batched_lb(fmodel, fq, fqd, fja, fma,
                                              dt=1.0 / 60.0, substeps=ss,
                                              mass_matrix_freq=ss)
             traj.append(fq[0])
@@ -435,7 +507,7 @@ def train(name, dev, card):
     from diffrl_tpu_torch.sim import substep_kernels as sk
 
     spec = MODELS[name]
-    epochs, mm = spec["epochs"], spec["mm"]
+    epochs, mm, substeps = spec["epochs"], spec["mm"], spec["substeps"]
     with open(os.path.join(ROOT, "examples", "cfg", "shac",
                            spec["cfg"])) as f:
         cfg = yaml.safe_load(f)
@@ -445,8 +517,8 @@ def train(name, dev, card):
                                    max_epochs=epochs, save_interval=0)
     trainer = SHAC(cfg, device=dev)
     if (trainer.env.sim_substeps, trainer.env.mm_caching_frequency) != \
-            (mm, mm):
-        raise RuntimeError(f"the {name} config no longer runs {mm} "
+            (substeps, mm):
+        raise RuntimeError(f"the {name} config no longer runs {substeps} "
                            f"substeps, mm {mm}")
     before = [p.detach().clone() for p in trainer.actor.parameters()]
     peaks_gb = []
@@ -469,7 +541,7 @@ def train(name, dev, card):
     launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
     trainer.train_epoch = train_epoch
     shutil.rmtree(logdir)
-    want = epochs * TRAIN_STEPS * (mm - 1)
+    want = epochs * TRAIN_STEPS * (substeps // mm) * (mm - 1)
     if launches != (want, want):
         raise RuntimeError(f"the {name} training path launched "
                            f"(substep_forward, substep_vjp) {launches} "
@@ -487,7 +559,7 @@ def train(name, dev, card):
             f"{E * TRAIN_STEPS / epoch_s[0]:.1f} training env-steps/s "
             f"(first epoch, builds included)")
     net = trainer.actor.mu_net
-    phase("train", f"SHAC {name} E={E} x {TRAIN_STEPS} steps, {mm} "
+    phase("train", f"SHAC {name} E={E} x {TRAIN_STEPS} steps, {substeps} "
           f"substeps, mm {mm}, actor {net.layer_dims} {net.activation}, "
           f"{epochs} epochs in {train_s:.2f} s: epoch seconds "
           + ", ".join(f"{t:.3f}" for t in epoch_s) + f" (first builds); "
@@ -571,19 +643,22 @@ def time_refresh(name, chk, card):
     Returns (refresh per call, replay per call) in ms."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
 
-    model, _, _, jat, _, h, H, _ = chk["fargs"]
+    model, _, _, jat, mat, h, H, _ = chk["fargs"]
     s1 = chk["step_state"][0]
     q, qd = s1.joint_q.T.contiguous(), s1.joint_qd.T.contiguous()
     gq, gqd = chk["vargs"][8], chk["vargs"][9]
     gH = torch.randn_like(H)
 
     def refresh():
-        lb.refresh_substep_lb(model, q, qd, jat, None, h)
+        lb.refresh_substep_lb(model, q, qd, jat, mat, h)
 
     def replay():
-        leaves = [t.detach().requires_grad_() for t in (q, qd, jat)]
+        leaves = [t.detach().requires_grad_() for t in (q, qd, jat, mat)
+                  if t is not None]
         with torch.enable_grad():
-            r1, rd1, rH, _ = lb.refresh_substep_lb(model, *leaves, None, h)
+            r1, rd1, rH, _ = lb.refresh_substep_lb(
+                model, *leaves[:3], leaves[3] if mat is not None else None,
+                h)
             torch.autograd.grad((r1, rd1, rH), leaves, (gq, gqd, gH))
 
     with torch.no_grad():
@@ -674,7 +749,7 @@ def main() -> int:
 
     # 5. dflex golden fixtures through the kernel path
     for name in FIXTURES:
-        check_fixture(name, menvs[name].model, dev)
+        check_fixture(name, menvs[name], dev)
 
     # 6. the rollout path: policy rollout through batched_eval
     env = menvs["Ant"]
@@ -711,12 +786,12 @@ def main() -> int:
           f"env-steps/s, mean reward {mean_rew:.4f}, mean length "
           f"{mean_len:.2f}, substep_forward launches {launches} | {card}")
 
-    # 7. the training paths, then one more epoch of Ant and of Humanoid
-    # split into its phases
+    # 7. the training paths, then one more epoch of Ant, Humanoid and SNU
+    # Humanoid split into its phases
     train_launches, splits = {}, {}
     for name in MODELS:
         trainer, train_launches[name] = train(name, dev, card)
-        if name in ("Ant", "Humanoid"):
+        if name in SPLIT:
             splits[name] = split_epoch(trainer)
         del trainer
         torch.cuda.empty_cache()
@@ -725,33 +800,38 @@ def main() -> int:
     # queued ahead (median of repeated batches), per-call time as a caller
     # sees it (CUDA events around each call, host launch overhead included)
     times = {name: time_kernels(name, checks[name], card) for name in MODELS}
-    replay_call = {name: time_refresh(name, checks[name], card)[1]
-                   for name in ("Ant", "Humanoid")}
+    refresh_call = {name: time_refresh(name, checks[name], card)
+                    for name in SPLIT}
     s1, ja, acts = checks["Ant"]["step_state"]
     with torch.no_grad():
         s_call, g_call = (statistics.median(event_times(fn, n)) for fn, n in (
             (lambda: env.step(s1, acts), 10),
             (lambda: step_grad(env.model, *checks["Ant"]["gargs"],
                                plain=False), 5)))
-        v_call = {name: statistics.median(event_times(
-            lambda: sk.substep_vjp(*checks[name]["vargs"]), 100))
-            for name in ("Ant", "Humanoid")}
+        k_call = {name: [statistics.median(event_times(
+            lambda: fn(*checks[name][args]), 100))
+            for fn, args in ((sk.substep_forward, "fargs"),
+                             (sk.substep_vjp, "vargs"))] for name in SPLIT}
     phase("timing", f"Ant env step {s_call:.3f} ms per call = 1 refresh + "
           f"{MM - 1} kernel launches + obs/reward/reset; training env step "
           f"(forward and backward of simulate) {g_call:.3f} ms per call | "
           f"{card}")
     for name, (fwd_ms, bwd_ms, critic_ms) in splits.items():
-        mm = MODELS[name]["mm"]
-        n_win = TRAIN_STEPS * (mm - 1)
+        spec = MODELS[name]
+        blocks = TRAIN_STEPS * spec["substeps"] // spec["mm"]
+        n_win = blocks * (spec["mm"] - 1)
+        (r_call, rp_call), (f_call, v_call) = refresh_call[name], k_call[name]
         phase("timing", f"one {name} training epoch (E={E}, {TRAIN_STEPS} "
-              f"steps, {mm} substeps), host waiting after each phase: "
-              f"window forward {fwd_ms:.1f} ms, backward + actor step "
-              f"{bwd_ms:.1f} ms (K2 {n_win} launches x "
-              f"{v_call[name]:.3f} ms per call = "
-              f"{n_win * v_call[name]:.1f} ms; refresh replays "
-              f"{TRAIN_STEPS} x {replay_call[name]:.3f} ms per call = "
-              f"{TRAIN_STEPS * replay_call[name]:.1f} ms), critic "
-              f"{critic_ms:.1f} ms | {card}")
+              f"steps, {spec['substeps']} substeps, mm {spec['mm']}), host "
+              f"waiting after each phase: window forward {fwd_ms:.1f} ms "
+              f"(K1 {n_win} launches x {f_call:.3f} ms per call = "
+              f"{n_win * f_call:.1f} ms; refreshes {blocks} x {r_call:.3f} "
+              f"ms per call = {blocks * r_call:.1f} ms), backward + actor "
+              f"step {bwd_ms:.1f} ms (K2 {n_win} launches x {v_call:.3f} ms "
+              f"per call = {n_win * v_call:.1f} ms; refresh replays "
+              f"{blocks} x {rp_call:.3f} ms per call = "
+              f"{blocks * rp_call:.1f} ms), critic {critic_ms:.1f} ms | "
+              f"{card}")
 
     # bench.py-style random-action env-steps/s
     bench_env = envs.make("Ant", num_envs=E, seed=0, stochastic_init=True,

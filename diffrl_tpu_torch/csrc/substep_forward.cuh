@@ -3,14 +3,17 @@
 // Replaces the TPU kernel substep_forward_batched
 // (diffrl_tpu/sim/pallas_substep.py), whose traced body is
 // articulation_substep(..., mass_cache=(Hinv, Hinv)): fk -> inverse
-// dynamics -> ground contacts -> tau -> qdd = Hinv tau -> semi-implicit
-// integrate. The plain PyTorch version of the same function is
+// dynamics -> ground contacts -> muscles -> tau -> qdd = Hinv tau ->
+// semi-implicit integrate, for every joint type (free, ball, revolute,
+// prismatic, fixed) and for muscle-tendon units. The plain PyTorch version
+// of the same function is
 // diffrl_tpu_torch/sim/articulation_lb.py:substep_lb; every formula below
 // mirrors its env-minor counterpart there, in the same operation order.
 //
-// What bounds it: per env the kernel reads q [C], qd [D], joint_act [D] and
-// Hinv [D*D] once and writes q' [C], qd' [D] once (Ant: 268 floats); the
-// arithmetic is a few thousand flops, so the card's memory rate is the
+// What bounds it: per env the kernel reads q [C], qd [D], joint_act [D],
+// the muscle activations [M] and Hinv [D*D] once and writes q' [C], qd' [D]
+// once (Ant: 268 floats); the arithmetic is a few thousand flops (SNU's 198
+// muscle segments add about 25,000), so the card's memory rate is the
 // bound. What the design does about it on Hopper:
 // - a team of T lanes per env, inside one warp (T = DRL_T from the
 //   generated header), so that a batch of a few thousand envs still gives
@@ -30,8 +33,14 @@
 //   what the kinematics read first (the constants, q, qd), then the rest
 //   (Hinv, joint_act), which lands while the kinematics run;
 // - every sum is taken by one lane in a fixed order (a link's contacts in
-//   contact order, its children in descending row order, as the one-thread
-//   sweep took them): no atomics, and two launches give the same bits.
+//   contact order, its muscle segment ends in the plain version's order,
+//   its children in descending row order, as the one-thread sweep took
+//   them): no atomics, and two launches give the same bits;
+// - muscles keep nothing in the slot: a link's lane recomputes each
+//   segment that ends on it from the two link frames, reading the
+//   activation and the segment's points and tables through the read-only
+//   path from global memory (SNU's 198 segments would not fit the adjoint
+//   kernel's shared memory, which the forward's layout is part of).
 //
 // Each phase is a function of (env slot, lane); the kernel runs the phases
 // of all its envs in order through DRL_FOR_EACH_THREAD, which on the card
@@ -45,9 +54,11 @@
 // diffrl_tpu_torch/sim/substep_kernels.py:kernel_tables) defines the sizes,
 // the team size, the level spans of the processing order (parents before
 // children) and the per-link int tables. The float constants (joint
-// frames, inertias, gains, contact points and materials) come in one packed
-// buffer laid out by the offsets below. Each block copies both into shared
-// memory: the lanes of a team read them at different links.
+// frames, inertias, gains, contact points and materials, muscle points)
+// come in one packed buffer laid out by the offsets below. Each block
+// copies the int tables and the constants up to the muscle points into
+// shared memory: the lanes of a team read them at different links. The
+// muscle tables and points stay in global memory.
 #pragma once
 
 #include "substep_topology.h"
@@ -68,11 +79,17 @@
 #define DRL_COPY_WAIT_PRIOR() asm volatile("cp.async.wait_group 1;\n" ::)
 #define DRL_COPY_WAIT() asm volatile("cp.async.wait_all;\n" ::)
 #endif
+#ifndef DRL_LDG
+// a load through the read-only data cache
+#define DRL_LDG(p) __ldg(p)
+#endif
 
 namespace drl {
 
 constexpr int kPrismatic = 0;
 constexpr int kRevolute = 1;
+constexpr int kBall = 2;
+constexpr int kFixed = 3;
 constexpr int kFree = 4;
 
 constexpr int NL = DRL_NL;  // links
@@ -80,6 +97,15 @@ constexpr int NC = DRL_NC;  // coords
 constexpr int ND = DRL_ND;  // dofs
 constexpr int NK = DRL_NK;  // ground contacts
 constexpr int NLEV = DRL_NLEV;  // levels of the tree
+constexpr int NS = DRL_NS;  // motion-subspace columns (with a ball joint in
+                            // the model 1 per scalar joint and 3 per ball
+                            // joint, free and fixed joints none; else 1 per
+                            // link)
+constexpr int NM = DRL_NM;  // muscles
+constexpr int NSEG = DRL_NSEG;  // muscle segments between two links
+// bit t set when the model has a joint of type t: the branches of the
+// types it lacks compile away
+constexpr int kJointTypes = DRL_JOINT_TYPES;
 
 constexpr int T = DRL_T;  // threads per env (one team)
 constexpr int kBlockThreads = DRL_BLOCK_THREADS;
@@ -108,7 +134,14 @@ constexpr int kContact0 = kGravity + 3;
 // per contact k at kContact0 + k * kContactStride:
 // point [3], dist, ke, kd, kf, mu
 constexpr int kContactStride = 8;
-constexpr int kConstCount = kContact0 + NK * kContactStride;
+// the constants each block copies into shared memory
+constexpr int kSmemConstCount = kContact0 + NK * kContactStride;
+// per muscle segment k at kSeg0 + k * kSegStride, read from global memory:
+// its first point in the frame of its first link [3], its second point in
+// the frame of its second link [3]
+constexpr int kSeg0 = kSmemConstCount;
+constexpr int kSegStride = 6;
+constexpr int kConstCount = kSeg0 + NSEG * kSegStride;
 
 // The topology's int tables, indexed by the lane's link or contact (a
 // runtime value): children of link r are child(child_start(r) ..
@@ -121,6 +154,7 @@ constexpr int kConstCount = kContact0 + NK * kContactStride;
 constexpr int kNChild = DRL_NCHILD;  // links with a parent
 struct Tables {
   int type[NL], parent[NL], qstart[NL], dstart[NL];  // parent -1 for roots
+  int sstart[NL];  // first motion-subspace column
   int contact_row[NK > 0 ? NK : 1];
   int child_start[NL + 1], children[kNChild > 0 ? kNChild : 1];
   int link_contact_start[NL + 1], link_contacts[NK > 0 ? NK : 1];
@@ -128,10 +162,29 @@ struct Tables {
 };
 __constant__ Tables kTables = {
     DRL_TYPE,        DRL_PARENT,       DRL_QSTART,
-    DRL_DSTART,      DRL_CONTACT_ROW,  DRL_CHILD_START,
-    DRL_CHILDREN,    DRL_LINK_CONTACT_START, DRL_LINK_CONTACTS,
-    DRL_LEVEL_START};
+    DRL_DSTART,      DRL_SSTART,       DRL_CONTACT_ROW,
+    DRL_CHILD_START, DRL_CHILDREN,     DRL_LINK_CONTACT_START,
+    DRL_LINK_CONTACTS, DRL_LEVEL_START};
 __shared__ Tables drl_tables;
+
+// The muscle tables, in global memory (read with DRL_LDG, never written):
+// segment k joins link rows seg_row0[k] and seg_row1[k] and belongs to
+// muscle seg_m[k]; muscle m's segments are muscle_seg_start[m] ..
+// muscle_seg_start[m + 1] - 1; link r's segment ends are
+// link_ends[link_end_start[r] .. link_end_start[r + 1] - 1], each 2 k + side
+// (side 0: the segment's first point, whose link takes -[p x f, f]; side 1:
+// its second, +[p x f, f]), all of side 0 first, each side in segment
+// order: the order in which the plain version's two index_add_ calls sum
+// them.
+struct MuscleTables {
+  int seg_row0[NSEG > 0 ? NSEG : 1], seg_row1[NSEG > 0 ? NSEG : 1];
+  int seg_m[NSEG > 0 ? NSEG : 1];
+  int muscle_seg_start[NM + 1];
+  int link_end_start[NL + 1], link_ends[NSEG > 0 ? 2 * NSEG : 1];
+};
+__device__ MuscleTables kMuscleTables = {
+    DRL_SEG_ROW0, DRL_SEG_ROW1, DRL_SEG_M, DRL_MUSCLE_SEG_START,
+    DRL_LINK_END_START, DRL_LINK_ENDS};
 
 __device__ __forceinline__ int link_type(int r) { return drl_tables.type[r]; }
 __device__ __forceinline__ int link_parent(int r) {
@@ -143,6 +196,23 @@ __device__ __forceinline__ int link_qstart(int r) {
 __device__ __forceinline__ int link_dstart(int r) {
   return drl_tables.dstart[r];
 }
+// link r's first motion-subspace column: r itself in a model without a
+// ball joint (one column per link, no table read), else from the table
+constexpr bool kColumnPerLink = !((kJointTypes >> kBall) & 1);
+__device__ __forceinline__ int link_sstart(int r) {
+  return kColumnPerLink ? r : drl_tables.sstart[r];
+}
+// whether a link's joint type ty is t (false at compile time when the
+// model has no joint of type t)
+__device__ __forceinline__ bool is_type(int ty, int t) {
+  return ((kJointTypes >> t) & 1) && ty == t;
+}
+// motion-subspace columns of a joint type, and the most any has
+__device__ __forceinline__ int subspace_cols(int ty) {
+  if (is_type(ty, kBall)) return 3;
+  return is_type(ty, kFree) || is_type(ty, kFixed) ? 0 : 1;
+}
+constexpr int kMaxCols = (kJointTypes >> kBall) & 1 ? 3 : 1;
 __device__ __forceinline__ int contact_row(int k) {
   return drl_tables.contact_row[k];
 }
@@ -171,8 +241,8 @@ constexpr int X = hinv + ND * ND;  // link frames in space [NL][7]
 constexpr int vel = X + 7 * NL;  // spatial twists [NL][6]
 constexpr int acc = vel + 6 * NL;  // velocity-product accelerations
 constexpr int frc = acc + 6 * NL;  // body wrenches, then subtree sums
-constexpr int S = frc + 6 * NL;  // motion subspace of each scalar joint
-constexpr int cw = S + 6 * NL;   // contact wrenches [NK][6]
+constexpr int S = frc + 6 * NL;  // motion-subspace columns [NS][6]
+constexpr int cw = S + 6 * NS;   // contact wrenches [NK][6]
 constexpr int tau = cw + 6 * NK;  // [ND]
 constexpr int qdd = tau + ND;    // [ND]
 constexpr int end = qdd + ND;
@@ -349,13 +419,14 @@ __device__ __forceinline__ void store_rows(float* __restrict__ g, int R,
   }
 }
 
-// Copies the packed constant buffer after the block's W-float env slots;
-// returns where it lands. Asynchronous, as load_rows.
+// Copies the packed constant buffer up to the muscle points after the
+// block's W-float env slots; returns where it lands. Asynchronous, as
+// load_rows.
 template <int W>
 __device__ __forceinline__ const float* load_consts(const float* __restrict__ g,
                                                     int t) {
   float* dst = drl_smem + kEnvsPerBlock * W;
-  for (int i = t; i < kConstCount; i += kBlockThreads)
+  for (int i = t; i < kSmemConstCount; i += kBlockThreads)
     DRL_COPY_TO_SHARED(&dst[i], &g[i]);
   return dst;
 }
@@ -382,6 +453,39 @@ __device__ __forceinline__ float* env_slot(int t, int nenv) {
 // and the adjoint kernel (substep_vjp.cuh), which recomputes the forward to
 // get its linearization point. s is the env's slot.
 
+// column k of a joint's motion subspace in space, from its joint frame
+// X_sj: a ball joint's k-th axis, or the joint axis of a scalar joint;
+// angular {w, p x w} (revolute, ball) or linear {0, w} (prismatic), with
+// w = qrot(X_sj.q, axis)
+__device__ __forceinline__ V3 subspace_axis(int ty, V3 axis, int k) {
+  if (!is_type(ty, kBall)) return axis;
+  return {k == 0 ? 1.0f : 0.0f, k == 1 ? 1.0f : 0.0f, k == 2 ? 1.0f : 0.0f};
+}
+__device__ __forceinline__ SV subspace_col(int ty, Xform X_sj, V3 axis,
+                                           int k) {
+  const V3 w = qrot(X_sj.q, subspace_axis(ty, axis, k));
+  if (is_type(ty, kPrismatic)) return {{0.0f, 0.0f, 0.0f}, w};
+  return {w, cross(X_sj.p, w)};
+}
+
+// joint transform X_jc of link r from its coordinates
+__device__ __forceinline__ Xform joint_xform(int ty, V3 axis, const float* qv) {
+  Xform X_jc = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 1.0f}};  // fixed
+  if (is_type(ty, kPrismatic)) {
+    X_jc.p = axis * qv[0];
+  } else if (is_type(ty, kRevolute)) {
+    const float half = qv[0] * 0.5f;
+    const V3 sn = axis * sinf(half);
+    X_jc.q = {sn.x, sn.y, sn.z, cosf(half)};
+  } else if (is_type(ty, kBall)) {
+    X_jc.q = {qv[0], qv[1], qv[2], qv[3]};
+  } else if (is_type(ty, kFree) || !((kJointTypes >> kFixed) & 1)) {
+    // (without fixed joints the last type left is free)
+    X_jc = {{qv[0], qv[1], qv[2]}, {qv[3], qv[4], qv[5], qv[6]}};
+  }
+  return X_jc;
+}
+
 // fk, motion subspace, twist and velocity-product acceleration of link r;
 // its parent's are final (the sweep goes level by level)
 __device__ __forceinline__ void link_kinematics(const float* P, float* s,
@@ -395,18 +499,7 @@ __device__ __forceinline__ void link_kinematics(const float* P, float* s,
   const Xform X_pj = load_xform(c + kXpj);
   const V3 axis = load3(c + kAxis);
 
-  Xform X_jc = kIdentity;
-  if (ty == kPrismatic) {
-    X_jc.p = axis * qv[0];
-  } else if (ty == kRevolute) {
-    const float half = qv[0] * 0.5f;
-    const V3 sn = axis * sinf(half);
-    X_jc.p = {0.0f, 0.0f, 0.0f};
-    X_jc.q = {sn.x, sn.y, sn.z, cosf(half)};
-  } else {  // free
-    X_jc = {{qv[0], qv[1], qv[2]}, {qv[3], qv[4], qv[5], qv[6]}};
-  }
-  const Xform X_local = tmul(X_pj, X_jc);
+  const Xform X_local = tmul(X_pj, joint_xform(ty, axis, qv));
   Xform X_sc, X_sj;
   if (pr < 0) {
     X_sc = X_local;
@@ -418,18 +511,21 @@ __device__ __forceinline__ void link_kinematics(const float* P, float* s,
   }
   store_xform(s + fw::X + 7 * r, X_sc);
 
-  SV Sr = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}}, v_j;
-  if (ty == kRevolute) {
-    const V3 w = qrot(X_sj.q, axis);
-    Sr = {w, cross(X_sj.p, w)};
-    v_j = Sr * qdv[0];
-  } else if (ty == kPrismatic) {
-    Sr.v = qrot(X_sj.q, axis);
-    v_j = Sr * qdv[0];
-  } else {  // free: S is the identity
+  // v_j = sum_k S_k qd_k; free: S is the identity; fixed: no column
+  SV v_j = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  if (is_type(ty, kFree)) {
     v_j = {{qdv[0], qdv[1], qdv[2]}, {qdv[3], qdv[4], qdv[5]}};
+  } else {
+    float* S = s + fw::S + 6 * link_sstart(r);
+    const int ncol = subspace_cols(ty);
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      if (k >= ncol) break;
+      const SV Sk = subspace_col(ty, X_sj, axis, k);
+      store_sv(S + 6 * k, Sk);
+      v_j = k == 0 ? Sk * qdv[0] : v_j + Sk * qdv[k];
+    }
   }
-  store_sv(s + fw::S + 6 * r, Sr);
   SV vel, acc;
   if (pr < 0) {
     vel = v_j;
@@ -484,10 +580,65 @@ __device__ __forceinline__ void contact_wrench(const float* P, float* s,
   store_sv(s + fw::cw + 6 * k, SV{cross(p, f_total), f_total});
 }
 
+// Muscle segment k at the link frames of the slot: its end points in space
+// and its force f = safe_normalize(pos1 - pos0) act on link seg_row1(k) (the
+// reverse on seg_row0(k)); act is its muscle's activation, read at
+// ma[m * E] (ma already offset to the env). Also returns the direction's
+// pieces that the adjoint needs: d = pos1 - pos0 and inv = 1 / |d| (0
+// below the guard |d|^2 <= 1e-12, where the direction is 0).
+struct Segment {
+  V3 pos0, pos1, d, f;
+  float inv, act;
+};
+__device__ __forceinline__ Segment muscle_segment(const float* __restrict__ G,
+                                                  const float* s,
+                                                  const float* __restrict__ ma,
+                                                  int E, int k) {
+  const MuscleTables& mt = kMuscleTables;
+  const float* pts = G + kSeg0 + k * kSegStride;
+  const V3 r0 = {DRL_LDG(pts), DRL_LDG(pts + 1), DRL_LDG(pts + 2)};
+  const V3 r1 = {DRL_LDG(pts + 3), DRL_LDG(pts + 4), DRL_LDG(pts + 5)};
+  Segment g;
+  g.pos0 = tpoint(load_xform(s + fw::X + 7 * DRL_LDG(&mt.seg_row0[k])), r0);
+  g.pos1 = tpoint(load_xform(s + fw::X + 7 * DRL_LDG(&mt.seg_row1[k])), r1);
+  g.d = g.pos1 - g.pos0;
+  const float l2 = dot(g.d, g.d);
+  const bool safe = l2 > 1.0e-12f;
+  g.inv = safe ? 1.0f / sqrtf(l2) : 0.0f;
+  g.act = DRL_LDG(ma + DRL_LDG(&mt.seg_m[k]) * E);
+  g.f = (g.d * g.inv) * g.act;
+  return g;
+}
+
+// the muscle wrench on link r: the sum over its segment ends, in the plain
+// version's order (every first end, then every second end, each in segment
+// order), of -[pos0 x f, f] at a first end and +[pos1 x f, f] at a second
+__device__ __forceinline__ SV muscle_wrench(const float* __restrict__ G,
+                                            const float* s,
+                                            const float* __restrict__ ma,
+                                            int E, int r) {
+  const MuscleTables& mt = kMuscleTables;
+  SV w = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  const int i1 = DRL_LDG(&mt.link_end_start[r + 1]);
+  for (int i = DRL_LDG(&mt.link_end_start[r]); i < i1; ++i) {
+    const int end = DRL_LDG(&mt.link_ends[i]);
+    const Segment g = muscle_segment(G, s, ma, E, end >> 1);
+    if (end & 1) {
+      w = w + SV{cross(g.pos1, g.f), g.f};
+    } else {
+      w = w - SV{cross(g.pos0, g.f), g.f};
+    }
+  }
+  return w;
+}
+
 // subtree wrench of link r: its body wrench plus its contacts' (summed in
-// contact order, the plain version's index_add_) plus its children's
-// subtree wrenches, final since their level ran first
-__device__ __forceinline__ void subtree_wrench(float* s, int r) {
+// contact order, the plain version's index_add_) plus its muscles' plus its
+// children's subtree wrenches, final since their level ran first
+__device__ __forceinline__ void subtree_wrench(const float* __restrict__ G,
+                                               float* s,
+                                               const float* __restrict__ ma,
+                                               int E, int r) {
   SV f = load_sv(s + fw::frc + 6 * r);
   if (NK > 0) {
     SV cf = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
@@ -495,28 +646,39 @@ __device__ __forceinline__ void subtree_wrench(float* s, int r) {
       cf = cf + load_sv(s + fw::cw + 6 * link_contact(i));
     f = f + cf;
   }
+  if (NSEG > 0) f = f + muscle_wrench(G, s, ma, E, r);
   for (int i = child_start(r); i < child_start(r + 1); ++i)
     f = f + load_sv(s + fw::frc + 6 * child(i));
   store_sv(s + fw::frc + 6 * r, f);
 }
 
 // joint-space torques of link r from its subtree wrench, gains, limits and
-// actuation
+// actuation (a fixed joint has none)
 __device__ __forceinline__ void link_torque(const float* P, float* s, int r) {
   const float* c = P + r * kLinkStride;
+  const int ty = link_type(r);
   const int qs = link_qstart(r);
   const int ds = link_dstart(r);
   const SV frc = load_sv(s + fw::frc + 6 * r);
   float* tau = s + fw::tau + ds;
-  if (link_type(r) == kFree) {
+  if (is_type(ty, kFree)) {
     tau[0] = -frc.w.x;
     tau[1] = -frc.w.y;
     tau[2] = -frc.w.z;
     tau[3] = -frc.v.x;
     tau[4] = -frc.v.y;
     tau[5] = -frc.v.z;
-  } else {  // revolute / prismatic
-    const float Sf = dot(load_sv(s + fw::S + 6 * r), frc);
+  } else if (is_type(ty, kBall)) {
+    // -S_k f - kd qd_k - ke q_k on the quaternion's vector part; no
+    // actuation and no limits
+    const float* S = s + fw::S + 6 * link_sstart(r);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      tau[k] = -dot(load_sv(S + 6 * k), frc) -
+               c[kTargetKd] * s[fw::qd + ds + k] -
+               c[kTargetKe] * s[fw::q + qs + k];
+  } else if (!is_type(ty, kFixed)) {  // revolute / prismatic
+    const float Sf = dot(load_sv(s + fw::S + 6 * link_sstart(r)), frc);
     const float qj = s[fw::q + qs];
     const float qdj = s[fw::qd + ds];
     const float lower = c[kLower], upper = c[kUpper], l_ke = c[kLimitKe];
@@ -541,26 +703,40 @@ __device__ __forceinline__ void hinv_row(const float* s, const float* x,
 }
 
 // semi-implicit integration of link r's coordinates, in place: each link
-// reads and writes only its own
+// reads and writes only its own (a fixed joint has none)
 __device__ __forceinline__ void link_integrate(float* s, int r, float dt) {
+  const int ty = link_type(r);
   float* qv = s + fw::q + link_qstart(r);
   float* qdv = s + fw::qd + link_dstart(r);
   const float* qdd = s + fw::qdd + link_dstart(r);
-  if (link_type(r) == kFree) {
+  if (is_type(ty, kFree) || is_type(ty, kBall)) {
+    // the rotation: r' = normalize(r + 0.5 (w', 0) r dt); a free joint's
+    // position by its spatial twist
+    const int o = is_type(ty, kFree) ? 3 : 0;  // the quaternion in q
     const V3 w_s = V3{qdv[0], qdv[1], qdv[2]} + V3{qdd[0], qdd[1], qdd[2]} * dt;
-    const V3 v_s = V3{qdv[3], qdv[4], qdv[5]} + V3{qdd[3], qdd[4], qdd[5]} * dt;
-    const V3 p_s = {qv[0], qv[1], qv[2]};
-    const V3 dpdt = v_s + cross(w_s, p_s);
-    const Quat r_s = {qv[3], qv[4], qv[5], qv[6]};
+    const Quat r_s = {qv[o], qv[o + 1], qv[o + 2], qv[o + 3]};
     const Quat dr = qmul(Quat{w_s.x, w_s.y, w_s.z, 0.0f}, r_s);
-    const V3 p_n = p_s + dpdt * dt;
     const Quat r_n = qnormalize({r_s.x + dr.x * 0.5f * dt,
                                  r_s.y + dr.y * 0.5f * dt,
                                  r_s.z + dr.z * 0.5f * dt,
                                  r_s.w + dr.w * 0.5f * dt});
-    store_xform(qv, Xform{p_n, r_n});
-    store_sv(qdv, SV{w_s, v_s});
-  } else {  // revolute / prismatic
+    if (is_type(ty, kFree)) {
+      const V3 v_s =
+          V3{qdv[3], qdv[4], qdv[5]} + V3{qdd[3], qdd[4], qdd[5]} * dt;
+      const V3 p_s = {qv[0], qv[1], qv[2]};
+      const V3 p_n = p_s + (v_s + cross(w_s, p_s)) * dt;
+      store_xform(qv, Xform{p_n, r_n});
+      store_sv(qdv, SV{w_s, v_s});
+    } else {
+      qv[0] = r_n.x;
+      qv[1] = r_n.y;
+      qv[2] = r_n.z;
+      qv[3] = r_n.w;
+      qdv[0] = w_s.x;
+      qdv[1] = w_s.y;
+      qdv[2] = w_s.z;
+    }
+  } else if (!is_type(ty, kFixed)) {  // revolute / prismatic
     const float qd_n = qdv[0] + qdd[0] * dt;
     qv[0] = qv[0] + qd_n * dt;
     qdv[0] = qd_n;
@@ -572,9 +748,14 @@ __device__ __forceinline__ void link_integrate(float* s, int r, float dt) {
 // level up, each link's torque as soon as its subtree wrench is final;
 // qdd = Hinv tau. The block's first group of copies (constants, q, qd) has
 // landed; the second (joint_act, Hinv and what else the kernel reads
-// later) lands while the wrenches run.
+// later) lands while the wrenches run. G is the constant buffer in global
+// memory (the muscle points), ma the muscle activations [NM, E] (unused
+// without muscles), e0 the block's first env.
 template <int W>
-__device__ __forceinline__ void forward_phases(const float* P, int nenv) {
+__device__ __forceinline__ void forward_phases(const float* P,
+                                               const float* __restrict__ G,
+                                               const float* __restrict__ ma,
+                                               int e0, int E, int nenv) {
 #pragma unroll 1
   for (int lv = 0; lv < NLEV; ++lv) {
     DRL_FOR_EACH_THREAD(t) {
@@ -600,7 +781,7 @@ __device__ __forceinline__ void forward_phases(const float* P, int nenv) {
       if (float* s = env_slot<W>(t, nenv)) {
         for (int r = level_start(lv) + t % T; r < level_start(lv + 1);
              r += T) {
-          subtree_wrench(s, r);
+          subtree_wrench(G, s, NM > 0 ? ma + e0 + t / T : ma, E, r);
           link_torque(P, s, r);
         }
       }
@@ -616,15 +797,16 @@ __device__ __forceinline__ void forward_phases(const float* P, int nenv) {
   __syncwarp();
 }
 
-// q [NC, E], qd / joint_act [ND, E], hinv [ND, ND, E] (row i, column j at
+// q [NC, E], qd / joint_act [ND, E], ma [NM, E] (muscle activations; may
+// be null without muscles), hinv [ND, ND, E] (row i, column j at
 // (i * ND + j) * E + e); outputs q_out [NC, E], qd_out [ND, E]. Block b
 // takes envs [b * kEnvsPerBlock, ...) with kFwdEnvWords floats of dynamic
 // shared memory each, and a copy of the constant buffer.
 __global__ void __launch_bounds__(kBlockThreads) substep_forward_kernel(
     const float* __restrict__ q, const float* __restrict__ qd,
-    const float* __restrict__ joint_act, const float* __restrict__ hinv,
-    const float* __restrict__ consts, float* __restrict__ q_out,
-    float* __restrict__ qd_out, int E, float dt) {
+    const float* __restrict__ joint_act, const float* __restrict__ ma,
+    const float* __restrict__ hinv, const float* __restrict__ consts,
+    float* __restrict__ q_out, float* __restrict__ qd_out, int E, float dt) {
   constexpr int W = kFwdEnvWords;
   const int e0 = blockIdx.x * kEnvsPerBlock;
   const int nenv = E - e0 < kEnvsPerBlock ? E - e0 : kEnvsPerBlock;
@@ -641,7 +823,7 @@ __global__ void __launch_bounds__(kBlockThreads) substep_forward_kernel(
     DRL_COPY_WAIT_PRIOR();
   }
   __syncthreads();
-  forward_phases<W>(P, nenv);
+  forward_phases<W>(P, consts, ma, e0, E, nenv);
   DRL_FOR_EACH_THREAD(t) {
     if (float* s = env_slot<W>(t, nenv)) {
       for (int r = t % T; r < NL; r += T) link_integrate(s, r, dt);

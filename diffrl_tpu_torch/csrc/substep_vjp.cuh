@@ -17,15 +17,20 @@
 //   forward's index order), adj_tau = lam, dH = -lam qdd^T, Hinv frozen.
 //   H itself is never read.
 //
+// - a guarded normalize (a muscle segment's direction) passes nothing back
+//   below its guard, as JAX's where does.
+//
 // Pass structure: recompute the forward with the phases of
 // substep_forward.cuh (frames, twists, accelerations, motion subspaces,
 // subtree wrenches and qdd stay in the env's shared-memory slot); then
 // sweep backward: integrate -> solve -> torques and dH -> subtree sums ->
-// contacts -> each link's wrench -> inverse dynamics and fk, level by level
-// from the leaves to the root.
+// contacts and muscle activations -> each link's wrench (its contacts' and
+// muscle segment ends' too) -> inverse dynamics and fk, level by level from
+// the leaves to the root.
 //
-// What bounds it: per env it reads q, qd, joint_act, Hinv, gq and gqd once
-// (Ant: 268 floats) and writes dq, dqd, djoint_act and dH once (239 floats);
+// What bounds it: per env it reads q, qd, joint_act, the muscle activations,
+// Hinv, gq and gqd once (Ant: 268 floats) and writes dq, dqd, djoint_act,
+// the activations' cotangent dma and dH once (Ant: 239 floats);
 // the arithmetic is roughly three times the forward's. The design is the
 // forward kernel's: a team of T lanes per env, every intermediate and every
 // adjoint in the env's shared-memory slot (kVjpEnvWords floats), global
@@ -34,7 +39,13 @@
 // of dH. What a link passes to its parent (acceleration, twist and frame
 // adjoints) goes to its own slot, and the parent's lane adds its children's
 // after the level's sync, in descending row order: no atomics, so two
-// launches give the same bits.
+// launches give the same bits. Muscles add nothing to the slot (SNU's
+// adjoint block of 16 envs, with the int tables, fills 231,136 of the
+// 232,448 bytes a block may have): each segment's forward and the adjoint
+// of its force are recomputed from the link frames and the final wrench
+// adjoints, once at each of its two link ends (the frame adjoints) and once
+// for its muscle (dma, which the muscle's lane sums over its segments in
+// order and writes to global memory itself).
 #pragma once
 
 #include "substep_forward.cuh"
@@ -251,8 +262,8 @@ constexpr int aqdd = aqd + ND;   // [ND]
 constexpr int atau = aqdd + ND;  // lam = Hinv adj_qdd [ND]
 constexpr int dja = atau + ND;   // djoint_act [ND]
 constexpr int aF = dja + ND;     // wrench adjoints [NL][6]
-constexpr int aS = aF + 6 * NL;  // motion-subspace adjoints [NL][6]
-constexpr int aX = aS + 6 * NL;  // link-frame adjoints [NL][7]
+constexpr int aS = aF + 6 * NL;  // motion-subspace adjoints [NS][6]
+constexpr int aX = aS + 6 * NS;  // link-frame adjoints [NL][7]
 constexpr int avel = aX + 7 * NL;   // twist adjoints [NL][6]
 constexpr int aacc = avel + 6 * NL;  // acceleration adjoints [NL][6]
 constexpr int cX = aacc + 6 * NL;   // per contact: its link's frame [NK][7]
@@ -268,9 +279,11 @@ static_assert(kVjpEnvWords == DRL_VJP_ENV_WORDS,
               "the adjoint slot differs from kernel_tables' layout");
 
 // integrate: q' = q + qd' dt, qd' = qd + qdd dt (free joints: position by
-// the spatial twist, rotation by qmul and qnormalize); the first adjoint of
-// link r's coordinates, so it assigns aq and aqd
+// the spatial twist; free and ball joints: rotation by qmul and
+// qnormalize); the first adjoint of link r's coordinates, so it assigns aq
+// and aqd
 __device__ __forceinline__ void link_integrate_adj(float* s, int r, float dt) {
+  const int ty = link_type(r);
   const int qs = link_qstart(r), ds = link_dstart(r);
   const float* qv = s + fw::q + qs;
   const float* qdv = s + fw::qd + ds;
@@ -280,18 +293,16 @@ __device__ __forceinline__ void link_integrate_adj(float* s, int r, float dt) {
   float* aq = s + bw::aq + qs;
   float* aqd = s + bw::aqd + ds;
   float* aqdd = s + bw::aqdd + ds;
-  if (link_type(r) == kFree) {
+  if (is_type(ty, kFree) || is_type(ty, kBall)) {
+    const int o = is_type(ty, kFree) ? 3 : 0;  // the quaternion in q
     const V3 w_s = V3{qdv[0], qdv[1], qdv[2]} + V3{qdd[0], qdd[1], qdd[2]} * dt;
-    const V3 p_s = {qv[0], qv[1], qv[2]};
-    const Quat r_s = {qv[3], qv[4], qv[5], qv[6]};
+    const Quat r_s = {qv[o], qv[o + 1], qv[o + 2], qv[o + 3]};
     const Quat wq = {w_s.x, w_s.y, w_s.z, 0.0f};
     const Quat dr = qmul(wq, r_s);
     const Quat u = {r_s.x + dr.x * 0.5f * dt, r_s.y + dr.y * 0.5f * dt,
                     r_s.z + dr.z * 0.5f * dt, r_s.w + dr.w * 0.5f * dt};
-    const V3 gp = {gq[0], gq[1], gq[2]};
-    const Quat gr = {gq[3], gq[4], gq[5], gq[6]};
+    const Quat gr = {gq[o], gq[o + 1], gq[o + 2], gq[o + 3]};
     V3 aw_s = {gqd[0], gqd[1], gqd[2]};
-    V3 av_s = {gqd[3], gqd[4], gqd[5]};
     // r_n = qnormalize(r_s + dr * 0.5 * dt), dr = qmul(wq, r_s)
     Quat ar_s = adj_qnormalize(u, gr);
     const Quat adr = {ar_s.x * 0.5f * dt, ar_s.y * 0.5f * dt,
@@ -299,16 +310,32 @@ __device__ __forceinline__ void link_integrate_adj(float* s, int r, float dt) {
     Quat awq = {0.0f, 0.0f, 0.0f, 0.0f};
     adj_qmul(wq, r_s, adr, awq, ar_s);
     aw_s += V3{awq.x, awq.y, awq.z};
-    // p_n = p_s + (v_s + cross(w_s, p_s)) dt
-    V3 ap_s = gp;
-    const V3 adpdt = gp * dt;
-    av_s += adpdt;
-    adj_cross(w_s, p_s, adpdt, aw_s, ap_s);
-    // w_s = w + qdd_w dt, v_s = v + qdd_v dt
-    store_xform(aq, Xform{ap_s, ar_s});
-    store_sv(aqd, SV{aw_s, av_s});
-    store_sv(aqdd, SV{aw_s, av_s} * dt);
-  } else {  // revolute / prismatic
+    if (is_type(ty, kFree)) {
+      // p_n = p_s + (v_s + cross(w_s, p_s)) dt
+      const V3 p_s = {qv[0], qv[1], qv[2]};
+      const V3 gp = {gq[0], gq[1], gq[2]};
+      V3 av_s = {gqd[3], gqd[4], gqd[5]};
+      V3 ap_s = gp;
+      const V3 adpdt = gp * dt;
+      av_s += adpdt;
+      adj_cross(w_s, p_s, adpdt, aw_s, ap_s);
+      // w_s = w + qdd_w dt, v_s = v + qdd_v dt
+      store_xform(aq, Xform{ap_s, ar_s});
+      store_sv(aqd, SV{aw_s, av_s});
+      store_sv(aqdd, SV{aw_s, av_s} * dt);
+    } else {
+      aq[0] = ar_s.x;
+      aq[1] = ar_s.y;
+      aq[2] = ar_s.z;
+      aq[3] = ar_s.w;
+      aqd[0] = aw_s.x;
+      aqd[1] = aw_s.y;
+      aqd[2] = aw_s.z;
+      aqdd[0] = aw_s.x * dt;
+      aqdd[1] = aw_s.y * dt;
+      aqdd[2] = aw_s.z * dt;
+    }
+  } else if (!is_type(ty, kFixed)) {  // revolute / prismatic
     const float gq_j = gq[0];
     const float aqd_n = gqd[0] + gq_j * dt;
     aq[0] = gq_j;
@@ -318,31 +345,114 @@ __device__ __forceinline__ void link_integrate_adj(float* s, int r, float dt) {
 }
 
 // joint torques of link r: its wrench adjoint aF (before the subtree
-// sums), its motion-subspace adjoint aS, djoint_act and the gain and limit
-// terms of aq, aqd
+// sums), its motion-subspace adjoints aS, djoint_act and the gain and limit
+// terms of aq, aqd (a fixed joint's wrench adjoint starts at 0)
 __device__ __forceinline__ void link_torque_adj(const float* P, float* s,
                                                 int r) {
   const float* c = P + r * kLinkStride;
+  const int ty = link_type(r);
   const int qs = link_qstart(r);
   const int ds = link_dstart(r);
   const float* atau = s + bw::atau + ds;
   float* dja = s + bw::dja + ds;
-  if (link_type(r) == kFree) {
+  if (is_type(ty, kFree)) {
     store_sv(s + bw::aF + 6 * r, SV{{-atau[0], -atau[1], -atau[2]},
                                     {-atau[3], -atau[4], -atau[5]}});
-    store_sv(s + bw::aS + 6 * r, kZeroSV);
 #pragma unroll
     for (int k = 0; k < 6; ++k) dja[k] = 0.0f;
-  } else {
+  } else if (is_type(ty, kBall)) {
+    // tau_k = -S_k f - kd qd_k - ke q_k
+    const float* S = s + fw::S + 6 * link_sstart(r);
+    float* aS = s + bw::aS + 6 * link_sstart(r);
+    const SV frc = load_sv(s + fw::frc + 6 * r);
+    SV aF = kZeroSV;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float at = atau[k];
+      aF += load_sv(S + 6 * k) * (-at);
+      store_sv(aS + 6 * k, frc * (-at));
+      s[bw::aq + qs + k] += -c[kTargetKe] * at;
+      s[bw::aqd + ds + k] += -c[kTargetKd] * at;
+      dja[k] = 0.0f;
+    }
+    store_sv(s + bw::aF + 6 * r, aF);
+  } else if (is_type(ty, kFixed)) {
+    store_sv(s + bw::aF + 6 * r, kZeroSV);
+  } else {  // revolute / prismatic
     const float at = atau[0];
     const float qj = s[fw::q + qs];
-    store_sv(s + bw::aF + 6 * r, load_sv(s + fw::S + 6 * r) * (-at));
-    store_sv(s + bw::aS + 6 * r, load_sv(s + fw::frc + 6 * r) * (-at));
+    store_sv(s + bw::aF + 6 * r,
+             load_sv(s + fw::S + 6 * link_sstart(r)) * (-at));
+    store_sv(s + bw::aS + 6 * link_sstart(r),
+             load_sv(s + fw::frc + 6 * r) * (-at));
     float aqj = -c[kTargetKe] * at;
     if (qj < c[kLower] || qj > c[kUpper]) aqj += -c[kLimitKe] * at;
     s[bw::aq + qs] += aqj;
     s[bw::aqd + ds] += -c[kTargetKd] * at - c[kLimitKd] * at;
     dja[0] = at;
+  }
+}
+
+// muscle segment k (recomputed from the slot's link frames, as
+// muscle_segment) with its two links' final wrench adjoints g0 and g1: the
+// cotangent of its force f, given that link seg_row0(k) takes -[pos0 x f, f]
+// and link seg_row1(k) +[pos1 x f, f]
+__device__ __forceinline__ V3 segment_force_adj(const float* s, int k,
+                                                const Segment& g, SV& g0,
+                                                SV& g1) {
+  const MuscleTables& mt = kMuscleTables;
+  g0 = load_sv(s + bw::aF + 6 * DRL_LDG(&mt.seg_row0[k]));
+  g1 = load_sv(s + bw::aF + 6 * DRL_LDG(&mt.seg_row1[k]));
+  return (cross(g1.w, g.pos1) + g1.v) - (cross(g0.w, g.pos0) + g0.v);
+}
+
+// muscle m: its activation's cotangent, the sum over its segments (in
+// order) of dot(adj_f, dir), written to dma [NM, E] at env e
+__device__ __forceinline__ void muscle_act_adj(const float* __restrict__ G,
+                                               const float* s,
+                                               const float* __restrict__ ma,
+                                               float* __restrict__ dma, int e,
+                                               int E, int m) {
+  const MuscleTables& mt = kMuscleTables;
+  float a = 0.0f;
+  const int k1 = DRL_LDG(&mt.muscle_seg_start[m + 1]);
+  for (int k = DRL_LDG(&mt.muscle_seg_start[m]); k < k1; ++k) {
+    const Segment g = muscle_segment(G, s, ma + e, E, k);
+    SV g0, g1;
+    a += dot(segment_force_adj(s, k, g, g0, g1), g.d * g.inv);
+  }
+  dma[m * E + e] = a;
+}
+
+// link r's segment ends: the adjoint of its frame through the ends' points
+// (directly, and through each segment's direction d = pos1 - pos0)
+__device__ __forceinline__ void muscle_frame_adj(const float* __restrict__ G,
+                                                 const float* s,
+                                                 const float* __restrict__ ma,
+                                                 int E, int r, Xform& aX) {
+  const MuscleTables& mt = kMuscleTables;
+  const Xform X = load_xform(s + fw::X + 7 * r);
+  const int i1 = DRL_LDG(&mt.link_end_start[r + 1]);
+  for (int i = DRL_LDG(&mt.link_end_start[r]); i < i1; ++i) {
+    const int end = DRL_LDG(&mt.link_ends[i]);
+    const int k = end >> 1;
+    const Segment g = muscle_segment(G, s, ma, E, k);
+    SV g0, g1;
+    // f = n act, n = d inv, inv = 1 / sqrt(|d|^2) above the guard
+    const V3 an = segment_force_adj(s, k, g, g0, g1) * g.act;
+    V3 ad = an * g.inv;
+    if (g.inv != 0.0f) {
+      const float al2 = dot(an, g.d) * (-0.5f) * g.inv * g.inv * g.inv;
+      ad += g.d * (2.0f * al2);
+    }
+    // the end's point: directly (its wrench's moment) and through d
+    const V3 ap = (end & 1) ? cross(g.f, g1.w) + ad
+                            : neg(cross(g.f, g0.w)) - ad;
+    const float* pts = G + kSeg0 + k * kSegStride + ((end & 1) ? 3 : 0);
+    const V3 pt = {DRL_LDG(pts), DRL_LDG(pts + 1), DRL_LDG(pts + 2)};
+    V3 apt = kZero3;
+    aX.p += ap;
+    adj_qrot(X.q, pt, ap, aX.q, apt);
   }
 }
 
@@ -362,9 +472,13 @@ __device__ __forceinline__ void contact_adj(const float* P, float* s,
 
 // link r's body wrench, frc = Ia + scross_dual(vel, Iv) - f_g with
 // f_g = {cross(X_sm.p, gm), gm}: the adjoints of its frame, twist and
-// acceleration, on top of its contacts' (in contact order)
-__device__ __forceinline__ void body_wrench_adj(const float* P, float* s,
-                                                int r) {
+// acceleration, on top of its contacts' (in contact order) and its muscle
+// segment ends'
+__device__ __forceinline__ void body_wrench_adj(const float* P,
+                                                const float* __restrict__ G,
+                                                float* s,
+                                                const float* __restrict__ ma,
+                                                int E, int r) {
   const float* c = P + r * kLinkStride;
   Xform aX = kZeroX;
   SV avel = kZeroSV, aacc = kZeroSV;
@@ -375,6 +489,7 @@ __device__ __forceinline__ void body_wrench_adj(const float* P, float* s,
       avel += load_sv(s + bw::cv + 6 * k);
     }
   }
+  if (NSEG > 0) muscle_frame_adj(G, s, ma, E, r, aX);
   const Xform X_sc = load_xform(s + fw::X + 7 * r);
   const Xform X_cm = load_xform(c + kXcm);
   const float m = c[kMass];
@@ -399,8 +514,9 @@ __device__ __forceinline__ void body_wrench_adj(const float* P, float* s,
 
 // link r's twist, acceleration and frame recursions, once its children's
 // level has run: add what each child passed up (descending row order), then
-// take the adjoints of v_j, S, X_sj and X_sc = tmul(X_sc[pr], tmul(X_pj,
-// X_jc)); what belongs to the parent goes to r's p* slots
+// take the adjoints of v_j = sum_k S_k qd_k, S, X_sj and X_sc =
+// tmul(X_sc[pr], tmul(X_pj, X_jc)); what belongs to the parent goes to r's
+// p* slots
 __device__ __forceinline__ void link_reverse(const float* P, float* s,
                                              int r) {
   const Xform kIdentity = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 1.0f}};
@@ -409,6 +525,7 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
   const int pr = link_parent(r);
   const int qs = link_qstart(r);
   const int ds = link_dstart(r);
+  const int ncol = subspace_cols(ty);
   Xform aX = load_xform(s + bw::aX + 7 * r);
   SV avel = load_sv(s + bw::avel + 6 * r);
   SV aacc = load_sv(s + bw::aacc + 6 * r);
@@ -420,6 +537,7 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
   }
   const float* qv = s + fw::q + qs;
   const float* qdv = s + fw::qd + ds;
+  const float* S = s + fw::S + 6 * link_sstart(r);
   const Xform X_pj = load_xform(c + kXpj);
   const V3 axis = load3(c + kAxis);
   const Xform X_p = pr < 0 ? kIdentity : load_xform(s + fw::X + 7 * pr);
@@ -428,12 +546,15 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
 
   // v_j, then acc = acc[pr] + scross(vel, v_j), vel = vel[pr] + v_j
   const Xform X_sj = pr < 0 ? tmul(kIdentity, X_pj) : tmul(X_p, X_pj);
-  const SV Sr = load_sv(s + fw::S + 6 * r);
-  SV v_j;
-  if (ty == kFree) {
+  SV v_j = kZeroSV;
+  if (is_type(ty, kFree)) {
     v_j = {{qdv[0], qdv[1], qdv[2]}, {qdv[3], qdv[4], qdv[5]}};
   } else {
-    v_j = Sr * qdv[0];
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      if (k >= ncol) break;
+      v_j = k == 0 ? load_sv(S) * qdv[0] : v_j + load_sv(S + 6 * k) * qdv[k];
+    }
   }
   SV avj = kZeroSV;
   if (pr < 0) {
@@ -446,44 +567,39 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
   avj += avel;
   float* aq = s + bw::aq + qs;
   float* aqd = s + bw::aqd + ds;
-  if (ty == kFree) {
+  if (is_type(ty, kFree)) {
     aqd[0] += avj.w.x;
     aqd[1] += avj.w.y;
     aqd[2] += avj.w.z;
     aqd[3] += avj.v.x;
     aqd[4] += avj.v.y;
     aqd[5] += avj.v.z;
-  } else {
-    const SV aS = load_sv(s + bw::aS + 6 * r) + avj * qdv[0];
-    aqd[0] += dot(Sr, avj);
-    // S from X_sj: revolute {w, cross(p, w)} with w = qrot(q, axis),
-    // prismatic {0, qrot(q, axis)}
+  } else if (ncol > 0) {
+    // each column S_k from X_sj: revolute and ball {w, cross(p, w)},
+    // prismatic {0, w}, with w = qrot(q, axis_k)
     Xform aX_sj = kZeroX;
-    V3 aaxis = kZero3;
-    if (ty == kRevolute) {
-      const V3 w = qrot(X_sj.q, axis);
-      V3 aw = aS.w;
-      adj_cross(X_sj.p, w, aS.v, aX_sj.p, aw);
-      adj_qrot(X_sj.q, axis, aw, aX_sj.q, aaxis);
-    } else {
-      adj_qrot(X_sj.q, axis, aS.v, aX_sj.q, aaxis);
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      if (k >= ncol) break;
+      const SV aS = load_sv(s + bw::aS + 6 * (link_sstart(r) + k)) +
+                    avj * qdv[k];
+      aqd[k] += dot(load_sv(S + 6 * k), avj);
+      const V3 ax = subspace_axis(ty, axis, k);
+      V3 aaxis = kZero3;
+      if (is_type(ty, kPrismatic)) {
+        adj_qrot(X_sj.q, ax, aS.v, aX_sj.q, aaxis);
+      } else {
+        const V3 w = qrot(X_sj.q, ax);
+        V3 aw = aS.w;
+        adj_cross(X_sj.p, w, aS.v, aX_sj.p, aw);
+        adj_qrot(X_sj.q, ax, aw, aX_sj.q, aaxis);
+      }
     }
     if (pr >= 0) adj_tmul(X_p, X_pj, aX_sj, aX_p, dummyX);
   }
 
   // X_sc = tmul(X_sc[pr], X_local), X_local = tmul(X_pj, X_jc)
-  Xform X_jc = kIdentity;
-  float half = 0.0f;
-  if (ty == kPrismatic) {
-    X_jc.p = axis * qv[0];
-  } else if (ty == kRevolute) {
-    half = qv[0] * 0.5f;
-    const V3 sn = axis * sinf(half);
-    X_jc.p = kZero3;
-    X_jc.q = {sn.x, sn.y, sn.z, cosf(half)};
-  } else {
-    X_jc = {{qv[0], qv[1], qv[2]}, {qv[3], qv[4], qv[5], qv[6]}};
-  }
+  const Xform X_jc = joint_xform(ty, axis, qv);
   Xform aX_local = kZeroX;
   if (pr < 0) {
     aX_local = aX;
@@ -491,13 +607,20 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
     adj_tmul(X_p, tmul(X_pj, X_jc), aX, aX_p, aX_local);
     store_xform(s + bw::pX + 7 * r, aX_p);
   }
+  if (is_type(ty, kFixed)) return;  // X_jc is the identity: no coordinate
   Xform aX_jc = kZeroX;
   adj_tmul(X_pj, X_jc, aX_local, dummyX, aX_jc);
-  if (ty == kPrismatic) {
+  if (is_type(ty, kPrismatic)) {
     aq[0] += dot(axis, aX_jc.p);
-  } else if (ty == kRevolute) {
+  } else if (is_type(ty, kRevolute)) {
+    const float half = qv[0] * 0.5f;
     const V3 aqv = {aX_jc.q.x, aX_jc.q.y, aX_jc.q.z};
     aq[0] += (dot(axis, aqv) * cosf(half) - aX_jc.q.w * sinf(half)) * 0.5f;
+  } else if (is_type(ty, kBall)) {  // X_jc = {0, q}
+    aq[0] += aX_jc.q.x;
+    aq[1] += aX_jc.q.y;
+    aq[2] += aX_jc.q.z;
+    aq[3] += aX_jc.q.w;
   } else {
     aq[0] += aX_jc.p.x;
     aq[1] += aX_jc.p.y;
@@ -509,18 +632,18 @@ __device__ __forceinline__ void link_reverse(const float* P, float* s,
   }
 }
 
-// q, gq [NC, E]; qd, joint_act, gqd [ND, E]; hinv [ND, ND, E]. Outputs
-// dq [NC, E], dqd, djoint_act [ND, E], dh [ND, ND, E] (row i, column j at
-// (i * ND + j) * E + e). Block b takes envs [b * kEnvsPerBlock, ...) with
-// kVjpEnvWords floats of dynamic shared memory each, and a copy of the
-// constant buffer.
+// q, gq [NC, E]; qd, joint_act, gqd [ND, E]; ma [NM, E]; hinv [ND, ND, E].
+// Outputs dq [NC, E], dqd, djoint_act [ND, E], dma [NM, E], dh [ND, ND, E]
+// (row i, column j at (i * ND + j) * E + e); ma and dma may be null without
+// muscles. Block b takes envs [b * kEnvsPerBlock, ...) with kVjpEnvWords
+// floats of dynamic shared memory each, and a copy of the constant buffer.
 __global__ void __launch_bounds__(kBlockThreads) substep_vjp_kernel(
     const float* __restrict__ q, const float* __restrict__ qd,
-    const float* __restrict__ joint_act, const float* __restrict__ hinv,
-    const float* __restrict__ gq, const float* __restrict__ gqd,
-    const float* __restrict__ consts, float* __restrict__ dq,
-    float* __restrict__ dqd, float* __restrict__ dja, float* __restrict__ dh,
-    int E, float dt) {
+    const float* __restrict__ joint_act, const float* __restrict__ ma,
+    const float* __restrict__ hinv, const float* __restrict__ gq,
+    const float* __restrict__ gqd, const float* __restrict__ consts,
+    float* __restrict__ dq, float* __restrict__ dqd, float* __restrict__ dja,
+    float* __restrict__ dma, float* __restrict__ dh, int E, float dt) {
   constexpr int W = kVjpEnvWords;
   const int e0 = blockIdx.x * kEnvsPerBlock;
   const int nenv = E - e0 < kEnvsPerBlock ? E - e0 : kEnvsPerBlock;
@@ -541,7 +664,7 @@ __global__ void __launch_bounds__(kBlockThreads) substep_vjp_kernel(
   __syncthreads();
 
   // ---- forward recompute (substep_forward_kernel up to qdd)
-  forward_phases<W>(P, nenv);
+  forward_phases<W>(P, consts, ma, e0, E, nenv);
 
   // ---- integrate
   DRL_FOR_EACH_THREAD(t) {
@@ -582,16 +705,23 @@ __global__ void __launch_bounds__(kBlockThreads) substep_vjp_kernel(
     }
     __syncwarp();
   }
-  // ---- contacts, then each link's body wrench
+  // ---- contacts and muscle activations, then each link's body wrench
   DRL_FOR_EACH_THREAD(t) {
     if (float* s = env_slot<W>(t, nenv)) {
       for (int k = t % T; k < NK; k += T) contact_adj(P, s, k);
+      // (t % T < NM is not false at compile time for a signed t: without
+      // the guard a model without muscles would carry this code)
+      if (NM > 0) {
+        for (int m = t % T; m < NM; m += T)
+          muscle_act_adj(consts, s, ma, dma, e0 + t / T, E, m);
+      }
     }
   }
   __syncwarp();
   DRL_FOR_EACH_THREAD(t) {
     if (float* s = env_slot<W>(t, nenv)) {
-      for (int r = t % T; r < NL; r += T) body_wrench_adj(P, s, r);
+      for (int r = t % T; r < NL; r += T)
+        body_wrench_adj(P, consts, s, NM > 0 ? ma + e0 + t / T : ma, E, r);
     }
   }
   __syncwarp();

@@ -1,22 +1,28 @@
-"""Environment registry (port of diffrl_tpu/envs/__init__.py; the MJCF
-locomotion envs so far: CartPole and SNU Humanoid arrive with their slice)."""
+"""Environment registry (port of diffrl_tpu/envs/__init__.py: every env of
+the JAX package)."""
 
 from .base import DiffEnv, EnvState
 from .ant import AntEnv
+from .cartpole_swing_up import CartPoleSwingUpEnv
 from .cheetah import CheetahEnv
 from .hopper import HopperEnv
 from .humanoid import HumanoidEnv
+from .snu_humanoid import SNUHumanoidEnv
 
 _REGISTRY = {
     "AntEnv": AntEnv,
+    "CartPoleSwingUpEnv": CartPoleSwingUpEnv,
     "CheetahEnv": CheetahEnv,
     "HopperEnv": HopperEnv,
     "HumanoidEnv": HumanoidEnv,
+    "SNUHumanoidEnv": SNUHumanoidEnv,
     # short aliases
     "Ant": AntEnv,
+    "CartPoleSwingUp": CartPoleSwingUpEnv,
     "Cheetah": CheetahEnv,
     "Hopper": HopperEnv,
     "Humanoid": HumanoidEnv,
+    "SNUHumanoid": SNUHumanoidEnv,
 }
 
 

@@ -574,11 +574,12 @@ def _motion_subspaces(plan: _Plan, q, X_sc):
             v = _qrot(quat, g.axis)
             S = torch.cat([torch.zeros_like(v), v], dim=-2)[:, None]
         elif g.jtype == JOINT_BALL:
+            # the axes made on the device: setting an entry from a host
+            # number would be a synchronizing copy on every call
+            axes = torch.eye(3, dtype=q.dtype, device=q.device)
             rows = []
             for k in range(3):
-                ek = torch.zeros((1, 3, 1), dtype=q.dtype, device=q.device)
-                ek[0, k, 0] = 1.0
-                w = _qrot(quat, ek)
+                w = _qrot(quat, axes[k].reshape(1, 3, 1))
                 rows.append(torch.cat([w, _cross(p, w)], dim=-2))
             S = torch.stack(rows, dim=1)                         # [n,3,6,E]
         elif g.jtype == JOINT_FREE:

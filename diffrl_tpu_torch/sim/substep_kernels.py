@@ -13,12 +13,11 @@ a CUDA tensor it launches the kernel or raises. ``substep_forward.launches``
 and ``substep_vjp.launches`` count the kernel launches.
 
 Both kernels are specialized to one model topology and share its tables:
-sizes, the team size, the level spans and per-link tables go into a
+sizes, the team size, the level spans, per-link and muscle tables go into a
 generated header (built at first use by ``_build.py``), the float constants
-into one packed device buffer. They
-cover free, revolute and prismatic joints and ground contacts; a model with
-ball or fixed joints or muscles raises NotImplementedError when a kernel is
-prepared.
+into one packed device buffer. They cover every joint type (free, ball,
+revolute, prismatic, fixed), ground contacts and muscle-tendon units: K1
+takes the muscle activations [M, E], and K2 returns their cotangent.
 """
 
 from __future__ import annotations
@@ -33,11 +32,15 @@ import torch
 
 from .. import _build
 from .articulation_lb import _plan_for, substep_lb, substep_vjp_lb
-from .model import JOINT_FREE, JOINT_PRISMATIC, JOINT_REVOLUTE, Model
+from .model import (JOINT_BALL, JOINT_FIXED, JOINT_FREE, JOINT_PRISMATIC,
+                    JOINT_REVOLUTE, Model)
 
-_SUPPORTED_JOINTS = (JOINT_FREE, JOINT_PRISMATIC, JOINT_REVOLUTE)
 _LINK_STRIDE = 34      # floats per link row in the packed buffer (.cuh)
 _CONTACT_STRIDE = 8    # floats per contact
+# motion-subspace columns of each joint type in a model with a ball joint
+# (free and fixed: none kept); without one, every link keeps one column
+_SUBSPACE_COLS = {JOINT_PRISMATIC: 1, JOINT_REVOLUTE: 1, JOINT_BALL: 3,
+                  JOINT_FIXED: 0, JOINT_FREE: 0}
 _BLOCK_THREADS = 128   # threads per block of both kernels
 _MIN_TEAM = 8          # fewest threads per env (team_layout)
 _SMEM_PER_BLOCK = 232448   # shared memory one block may take on sm_90
@@ -53,6 +56,7 @@ class SubstepKernel:
     consts: torch.Tensor      # packed constant buffer, on the device
     coord_count: int
     dof_count: int
+    muscle_count: int
 
 
 @dataclass(frozen=True)
@@ -64,7 +68,8 @@ class TeamLayout:
     block_threads: int
     forward_words: int        # floats of shared memory per env in K1
     vjp_words: int            # ... in K2
-    const_words: int          # the packed constant buffer, once per block
+    const_words: int          # the constants up to the muscle points, once
+                              # per block
 
     def smem_bytes(self, name: str) -> int:
         """Dynamic shared memory per block of kernel ``name``."""
@@ -95,19 +100,25 @@ def team_layout(model: Model) -> TeamLayout:
     ``csrc/substep_forward.cuh`` (fw::) and ``csrc/substep_vjp.cuh`` (bw::)
     lay out, rounded up to an odd count of floats so that the lanes of a
     warp reading one field of several envs hit different banks; the
-    headers check these counts at compile time.
+    headers check these counts at compile time. The motion subspace takes 6
+    floats per column (``subspace_columns``). Muscles add nothing to the
+    slots (the kernels recompute each segment from the link frames), and
+    their tables and points stay in global memory: with them SNU Humanoid's
+    adjoint block of 16 envs is 231,136 of the 232,448 bytes a block may
+    have.
     """
     topo = model.topology
     plan = _plan_for(model, "cpu")
     L, C, D = topo.link_count, topo.coord_count, topo.dof_count
     K = len(plan.contact_rows)
+    NS = subspace_columns(model)
     widest = max((e - s for s, e in plan.levels), default=1)
-    fwd = C + 4 * D + D * D + 31 * L + 6 * K
-    vjp = fwd + 2 * C + 5 * D + 50 * L + 13 * K
+    fwd = C + 4 * D + D * D + 25 * L + 6 * NS + 6 * K
+    vjp = fwd + 2 * C + 5 * D + 44 * L + 6 * NS + 13 * K
     consts = L * _LINK_STRIDE + 3 + K * _CONTACT_STRIDE
     # the int tables' static shared memory (csrc/substep_forward.cuh Tables)
     nchild = sum(1 for p in topo.joint_parent if p >= 0)
-    tables = 4 * (6 * L + 2 * max(K, 1) + max(nchild, 1) + 2
+    tables = 4 * (7 * L + 2 * max(K, 1) + max(nchild, 1) + 2
                   + len(plan.levels) + 1)
     T = 1
     while T < 32 and (T < max(widest, _MIN_TEAM) or 4 * (
@@ -121,32 +132,48 @@ def team_layout(model: Model) -> TeamLayout:
                       const_words=consts)
 
 
+def _link_columns(joint_types) -> np.ndarray:
+    """Motion-subspace columns each link keeps in the kernels' slots: in a
+    model with a ball joint 1 per revolute or prismatic joint and 3 per
+    ball joint (free and fixed joints none); without one, 1 per link, so
+    that the headers' ``link_sstart`` gives r for link r with no table to
+    read (the free or fixed links' column unused)."""
+    types = np.asarray(joint_types, np.int64)
+    if JOINT_BALL not in types:
+        return np.ones(len(types), np.int64)
+    return np.asarray([_SUBSPACE_COLS[t] for t in types], np.int64)
+
+
+def subspace_columns(model: Model) -> int:
+    """Motion-subspace columns the kernels keep per env (``_link_columns``)."""
+    return int(_link_columns(model.topology.joint_type).sum())
+
+
 def kernel_tables(model: Model):
     """(generated header text, packed constants [n] f32) for ``model``.
 
     Tables are in the engine plan's processing order (level-major, parents
     before children), with the plan's level spans, each link's children
-    (descending rows) and contacts (ascending contact order), and the team
-    layout of ``team_layout``. Raises NotImplementedError for features the
-    kernel lacks.
+    (descending rows), contacts (ascending contact order) and first
+    motion-subspace column, the muscle segments (the plan's, between
+    waypoints on different links, in muscle order) with each link's
+    segment ends in the order the plain version sums them, and the team
+    layout of ``team_layout``. The constants end with each segment's two
+    points, which the kernels read from global memory.
     """
     topo = model.topology
-    if topo.muscle_count:
-        raise NotImplementedError(
-            "the substep CUDA kernels have no muscles yet")
     jtype = np.asarray(topo.joint_type, np.int64)
-    bad = sorted(set(jtype.tolist()) - set(_SUPPORTED_JOINTS))
-    if bad:
-        raise NotImplementedError(
-            f"the substep CUDA kernels support free, revolute and "
-            f"prismatic joints; this model has joint types {bad}")
     plan = _plan_for(model, "cpu")
     order = plan.order
     L = topo.link_count
     qs = np.asarray(topo.joint_q_start, np.int64)[order]
     ds = np.asarray(topo.joint_qd_start, np.int64)[order]
+    cols = _link_columns(jtype[order])
+    ss = np.cumsum(np.concatenate([[0], cols]))[:L]
     parent = np.where(plan.parent_row == L, -1, plan.parent_row)
     K = len(plan.contact_rows)
+    M = topo.muscle_count
+    NSEG = len(plan.seg_m)
 
     f32 = np.float32
     links = np.zeros((L, _LINK_STRIDE), f32)
@@ -170,9 +197,12 @@ def kernel_tables(model: Model):
         contacts[:, 0:3] = np.asarray(model.contact_point, f32)
         contacts[:, 3] = np.asarray(model.contact_dist, f32)
         contacts[:, 4:8] = np.asarray(model.contact_mat, f32)
+    segments = np.concatenate(
+        [plan.seg_r0.numpy().reshape(NSEG, 3),
+         plan.seg_r1.numpy().reshape(NSEG, 3)], axis=1).astype(f32)
     consts = np.concatenate([
         links.ravel(), np.asarray(model.gravity, f32).reshape(3),
-        contacts.ravel()])
+        contacts.ravel(), segments.ravel()])
 
     def table(xs):
         return "{" + ", ".join(str(int(x)) for x in xs) + "}" if len(xs) \
@@ -181,6 +211,12 @@ def kernel_tables(model: Model):
     children = [[c for c in range(L - 1, -1, -1) if parent[c] == r]
                 for r in range(L)]
     link_contacts = [np.nonzero(plan.contact_rows == r)[0] for r in range(L)]
+    # each link's segment ends 2 k + side: side 0 (the segment's first
+    # point) of every segment, then side 1, each in segment order
+    link_ends = [[2 * k + side for side, rows in enumerate(
+        (plan.seg_row0, plan.seg_row1)) for k in np.nonzero(rows == r)[0]]
+        for r in range(L)]
+    muscle_segs = np.searchsorted(plan.seg_m, np.arange(M + 1))
     layout = team_layout(model)
 
     header = "\n".join([
@@ -194,6 +230,10 @@ def kernel_tables(model: Model):
         f"#define DRL_PARENT {table(parent)}",
         f"#define DRL_QSTART {table(qs)}",
         f"#define DRL_DSTART {table(ds)}",
+        f"#define DRL_NS {int(cols.sum())}",
+        f"#define DRL_JOINT_TYPES "
+        f"{sum(1 << t for t in set(jtype.tolist()))}",
+        f"#define DRL_SSTART {table(ss)}",
         f"#define DRL_CONTACT_ROW {table(plan.contact_rows)}",
         f"#define DRL_NLEV {len(plan.levels)}",
         f"#define DRL_LEVEL_START "
@@ -206,6 +246,15 @@ def kernel_tables(model: Model):
         f"#define DRL_LINK_CONTACTS "
         f"{table(np.concatenate(link_contacts) if L else [])}",
         f"#define DRL_NCHILD {sum(map(len, children))}",
+        f"#define DRL_NM {M}",
+        f"#define DRL_NSEG {NSEG}",
+        f"#define DRL_SEG_ROW0 {table(plan.seg_row0)}",
+        f"#define DRL_SEG_ROW1 {table(plan.seg_row1)}",
+        f"#define DRL_SEG_M {table(plan.seg_m)}",
+        f"#define DRL_MUSCLE_SEG_START {table(muscle_segs)}",
+        f"#define DRL_LINK_END_START "
+        f"{table(np.cumsum([0] + [len(e) for e in link_ends]))}",
+        f"#define DRL_LINK_ENDS {table(sum(link_ends, []))}",
         f"#define DRL_T {layout.threads_per_env}",
         f"#define DRL_BLOCK_THREADS {layout.block_threads}",
         f"#define DRL_FWD_ENV_WORDS {layout.forward_words}",
@@ -229,10 +278,10 @@ def kernel_source(model: Model, name: str = "substep_forward"
 
 
 # pointer arguments of each library's C launch function, before (E, dt,
-# stream): substep_forward (q, qd, joint_act, hinv, consts, q_out, qd_out),
-# substep_vjp (q, qd, joint_act, hinv, gq, gqd, consts, dq, dqd, djoint_act,
-# dh)
-_POINTER_ARGS = {"substep_forward": 7, "substep_vjp": 11}
+# stream): substep_forward (q, qd, joint_act, ma, hinv, consts, q_out,
+# qd_out), substep_vjp (q, qd, joint_act, ma, hinv, gq, gqd, consts, dq, dqd,
+# djoint_act, dma, dh); ma and dma are null without muscles
+_POINTER_ARGS = {"substep_forward": 8, "substep_vjp": 13}
 
 # one built kernel per (Model object, kernel, device); a Model is immutable
 # and hashed by identity
@@ -271,7 +320,8 @@ def _prepare(name: str, model: Model, device,
     k = per_model[(name, device)] = SubstepKernel(
         name=name, built=built,
         consts=torch.as_tensor(consts, device=device),
-        coord_count=model.coord_count, dof_count=model.dof_count)
+        coord_count=model.coord_count, dof_count=model.dof_count,
+        muscle_count=model.topology.muscle_count)
     return k
 
 
@@ -335,11 +385,26 @@ def _check(kernel, name, t, shape, device):
 
 
 def _kernel_for(name, model, q, muscle_act):
+    """The kernel ``name`` for ``model`` on q's CUDA device, and the muscle
+    activations it reads ([M, E], or None without muscles: a model with
+    muscles given no activations has them at 0, as in the plain version)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA, not {q.device}")
-    if muscle_act is not None and muscle_act.shape[0]:
-        raise NotImplementedError(f"the {name} CUDA kernel has no muscles yet")
-    return _prepare(name, model, q.device, None)
+    k = _prepare(name, model, q.device, None)
+    ma = None
+    if k.muscle_count:
+        ma = muscle_act if muscle_act is not None else q.new_zeros(
+            (k.muscle_count, q.shape[-1]))
+        _check(name, "muscle_act", ma, (k.muscle_count, q.shape[-1]),
+               q.device)
+    elif muscle_act is not None and muscle_act.shape[0]:
+        raise ValueError(f"{name}: muscle_act given for a model without "
+                         f"muscles")
+    return k, ma
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def substep_forward(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv):
@@ -353,7 +418,7 @@ def substep_forward(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv):
     """
     if q.device.type == "cpu":
         return substep_lb(model, q, qd, joint_act, muscle_act, dt, H, Hinv)
-    k = _kernel_for("substep_forward", model, q, muscle_act)
+    k, ma = _kernel_for("substep_forward", model, q, muscle_act)
     C, D, E = k.coord_count, k.dof_count, q.shape[-1]
     for name, t, shape in (("q", q, (C, E)), ("qd", qd, (D, E)),
                            ("joint_act", joint_act, (D, E)),
@@ -363,9 +428,9 @@ def substep_forward(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv):
     qd_out = torch.empty_like(qd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = k.built.lib.drl_substep_forward(
-        q.data_ptr(), qd.data_ptr(), joint_act.data_ptr(), Hinv.data_ptr(),
-        k.consts.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
-        int(E), float(dt), stream)
+        q.data_ptr(), qd.data_ptr(), joint_act.data_ptr(), _ptr(ma),
+        Hinv.data_ptr(), k.consts.data_ptr(), q_out.data_ptr(),
+        qd_out.data_ptr(), int(E), float(dt), stream)
     if err:
         raise RuntimeError(f"substep_forward launch failed: cudaError {err}")
     substep_forward.launches += 1
@@ -383,13 +448,14 @@ def substep_vjp(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv,
     of its outputs. Returns (dq [C, E], dqd [D, E], djoint_act [D, E],
     dmuscle_act [M, E] | None, dH [D, D, E]) with the frozen-factor
     convention (dH = -lam qdd^T, lam = Hinv adj_qdd; Hinv gets nothing).
-    CPU tensors run the plain version (substep_vjp_lb); CUDA tensors launch
-    the adjoint kernel, which reads Hinv and not H.
+    dmuscle_act is None when muscle_act is. CPU tensors run the plain
+    version (substep_vjp_lb); CUDA tensors launch the adjoint kernel, which
+    reads Hinv and not H.
     """
     if q.device.type == "cpu":
         return substep_vjp_lb(model, q, qd, joint_act, muscle_act, dt, H,
                               Hinv, gq, gqd)
-    k = _kernel_for("substep_vjp", model, q, muscle_act)
+    k, ma = _kernel_for("substep_vjp", model, q, muscle_act)
     C, D, E = k.coord_count, k.dof_count, q.shape[-1]
     for name, t, shape in (("q", q, (C, E)), ("qd", qd, (D, E)),
                            ("joint_act", joint_act, (D, E)),
@@ -399,17 +465,18 @@ def substep_vjp(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv,
     dq = torch.empty_like(q)
     dqd = torch.empty_like(qd)
     dja = torch.empty_like(joint_act)
+    dma = torch.empty_like(ma) if ma is not None else None
     dH = torch.empty_like(Hinv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = k.built.lib.drl_substep_vjp(
-        q.data_ptr(), qd.data_ptr(), joint_act.data_ptr(), Hinv.data_ptr(),
-        gq.data_ptr(), gqd.data_ptr(), k.consts.data_ptr(), dq.data_ptr(),
-        dqd.data_ptr(), dja.data_ptr(), dH.data_ptr(), int(E), float(dt),
-        stream)
+        q.data_ptr(), qd.data_ptr(), joint_act.data_ptr(), _ptr(ma),
+        Hinv.data_ptr(), gq.data_ptr(), gqd.data_ptr(), k.consts.data_ptr(),
+        dq.data_ptr(), dqd.data_ptr(), dja.data_ptr(), _ptr(dma),
+        dH.data_ptr(), int(E), float(dt), stream)
     if err:
         raise RuntimeError(f"substep_vjp launch failed: cudaError {err}")
     substep_vjp.launches += 1
-    return dq, dqd, dja, None, dH
+    return dq, dqd, dja, dma if muscle_act is not None else None, dH
 
 
 substep_vjp.launches = 0
@@ -417,10 +484,12 @@ substep_vjp.launches = 0
 
 def substep_forward_bytes(model: Model, E: int) -> int:
     """Bytes one launch must move: each input read once (q, qd, joint_act,
-    Hinv and the constant buffer), each output written once."""
+    the muscle activations, Hinv and the constant buffer), each output
+    written once."""
     C, D = model.coord_count, model.dof_count
+    M = model.topology.muscle_count
     _, consts = kernel_tables(model)
-    return 4 * (E * (C + 2 * D + D * D + C + D) + consts.size)
+    return 4 * (E * (C + 2 * D + M + D * D + C + D) + consts.size)
 
 
 # flops of the kernel's primitives, counted from substep_forward.cuh
@@ -432,6 +501,9 @@ _TINV = _QROT                                         # 38
 _TWIST = 2 * _QROT + _CROSS + 3                       # 88
 _INERTIA = _TINV + _TWIST + 15 + 3 + _TWIST           # 232
 _SCROSS = 3 * _CROSS + 3                              # 30
+# one muscle segment: both points in space, the guarded direction, the
+# force, and the wrench at each end added to its link's sum
+_SEGMENT = 2 * (_QROT + 3) + 3 + 5 + 2 + 3 + 3 + 2 * (_CROSS + 6)   # 128
 
 
 def substep_forward_flops(model: Model, E: int) -> int:
@@ -451,25 +523,32 @@ def substep_forward_flops(model: Model, E: int) -> int:
         if t in (JOINT_REVOLUTE, JOINT_PRISMATIC):
             n += 11 + 14                          # S.f and the torque terms
             n += 4                                # integrate
-        else:                                     # free
+        elif t == JOINT_BALL:
+            n += 3 * (_QROT + _CROSS) + 30        # S columns, v_j
+            n += 3 * (11 + 5)                     # S_k.f and the gain terms
+            n += 6 + _QMUL + 12 + 12              # integrate and normalize
+        elif t == JOINT_FREE:
             n += 6 + 6 + _CROSS + 6 + _QMUL + 12 + 12 + 4
         if topo.joint_parent[link] >= 0:
             n += 6                                # subtree sum
     n += len(plan.contact_rows) * (
         _QROT + 3 + 3 + _CROSS + 3 + 1 + 4 + _DOT3 + 1 + 3 + 5 + 3 + 7
         + _CROSS + 6 + 6)
+    n += len(plan.seg_m) * _SEGMENT
     n += 2 * topo.dof_count ** 2                  # Hinv tau
     return n * E
 
 
 def substep_vjp_bytes(model: Model, E: int) -> int:
-    """Bytes one adjoint launch must move: q, qd, joint_act, Hinv, gq, gqd
-    and the constant buffer read once; dq, dqd, djoint_act and dH written
-    once (H is not read)."""
+    """Bytes one adjoint launch must move: q, qd, joint_act, the muscle
+    activations, Hinv, gq, gqd and the constant buffer read once; dq, dqd,
+    djoint_act, the activations' cotangent and dH written once (H is not
+    read)."""
     C, D = model.coord_count, model.dof_count
+    M = model.topology.muscle_count
     _, consts = kernel_tables(model)
-    return 4 * (E * ((C + 2 * D + D * D + C + D) + (C + 2 * D + D * D))
-                + consts.size)
+    return 4 * (E * ((C + 2 * D + M + D * D + C + D)
+                     + (C + 2 * D + M + D * D)) + consts.size)
 
 
 # flops of the adjoint arithmetic alone, counted from substep_vjp.cuh. The
@@ -496,6 +575,11 @@ _ADJ_SCROSS = 3 * _ADJ_CROSS                          # 72
 # wrench, friction, normal force, velocity and point adjoints of one
 # contact below the ground
 _CONTACT_ADJ = 2 * _ADJ_CROSS + _ADJ_QROT_Q + 65      # 171
+# one muscle segment: its force's cotangent from both ends' wrench
+# adjoints (27), through the activation (3) and the guarded normalize (19),
+# both points' direct adjoints (24) and their link frames' (122), and the
+# activation's cotangent (9)
+_MUSCLE_ADJ = 27 + 3 + 19 + 24 + 2 * (3 + _ADJ_QROT_Q) + 9   # 204
 
 
 def active_contacts(model: Model, q) -> int:
@@ -535,13 +619,21 @@ def substep_vjp_flops(model: Model, E: int, n_active: int) -> int:
             n += _ADJ_QROT_Q + (0 if root else _ADJ_TMUL_T)  # S, X_sj
             n += 21 + 5                           # torque and integrate
             n += 10 if t == JOINT_REVOLUTE else 6   # joint transform
-        else:                                     # free
+        elif t == JOINT_BALL:
+            n += 3 * (12 + 12 + _ADJ_CROSS + _ADJ_QROT_Q)   # aS, aqd, S
+            n += 0 if root else _ADJ_TMUL_T       # X_sj
+            n += 3 * 23                           # torque
+            n += _ADJ_QNORMALIZE + 12 + _ADJ_QMUL + 6   # integrate
+            n += 4                                # joint transform
+        elif t == JOINT_FREE:
             n += 6 + 6 + 7                        # aqd, -atau, aq
             n += (_ADJ_QNORMALIZE + 12 + _ADJ_QMUL + 3 + 3 + 3 + _ADJ_CROSS
                   + 7 + 6 + 6)                    # integrate
         if not root:
             n += _ADJ_TMUL + 6                    # X_sc, subtree sum
-        n += _ADJ_TMUL_U                          # X_local -> X_jc
+        if t != JOINT_FIXED:
+            n += _ADJ_TMUL_U                      # X_local -> X_jc
+    n += len(_plan_for(model, "cpu").seg_m) * _MUSCLE_ADJ
     n += 3 * D * D                                # lam = Hinv adj_qdd, dH
     return (substep_forward_flops(model, E) + n * E
             + n_active * _CONTACT_ADJ)

@@ -7,8 +7,9 @@ The shim defines the CUDA qualifiers and syncs away and
 ``DRL_FOR_EACH_THREAD(t)`` as a loop over the block's threads, so every
 lane of every team runs one phase before the next phase starts (on the card
 each thread runs its own lane between syncs); ``cp.async``
-(``DRL_COPY_*``) becomes a plain copy. The harness calls the kernel once
-per block. This module imports no JAX.
+(``DRL_COPY_*``) becomes a plain copy, and a read-only load (``__ldg``) a
+plain load. The harness calls the kernel once per block. This module
+imports no JAX.
 """
 
 import ctypes
@@ -39,6 +40,7 @@ SHIM = """
 #define DRL_COPY_COMMIT()
 #define DRL_COPY_WAIT_PRIOR()
 #define DRL_COPY_WAIT()
+#define DRL_LDG(p) (*(p))
 struct Dim3 { int x; };
 static Dim3 blockIdx, blockDim, threadIdx;
 """
@@ -51,13 +53,13 @@ float drl_smem[kEnvsPerBlock * kFwdEnvWords + kConstCount];
 }
 extern "C" int const_count() { return drl::kConstCount; }
 extern "C" void run(const float* q, const float* qd, const float* ja,
-                    const float* hinv, const float* consts, float* q_out,
-                    float* qd_out, int E, float dt) {
+                    const float* ma, const float* hinv, const float* consts,
+                    float* q_out, float* qd_out, int E, float dt) {
   blockDim.x = drl::kBlockThreads;
   for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
     blockIdx.x = b;
-    drl::substep_forward_kernel(q, qd, ja, hinv, consts, q_out, qd_out, E,
-                                dt);
+    drl::substep_forward_kernel(q, qd, ja, ma, hinv, consts, q_out, qd_out,
+                                E, dt);
   }
 }
 """,
@@ -68,14 +70,15 @@ float drl_smem[kEnvsPerBlock * kVjpEnvWords + kConstCount];
 }
 extern "C" int const_count() { return drl::kConstCount; }
 extern "C" void run(const float* q, const float* qd, const float* ja,
-                    const float* hinv, const float* gq, const float* gqd,
-                    const float* consts, float* dq, float* dqd, float* dja,
-                    float* dh, int E, float dt) {
+                    const float* ma, const float* hinv, const float* gq,
+                    const float* gqd, const float* consts, float* dq,
+                    float* dqd, float* dja, float* dma, float* dh, int E,
+                    float dt) {
   blockDim.x = drl::kBlockThreads;
   for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
     blockIdx.x = b;
-    drl::substep_vjp_kernel(q, qd, ja, hinv, gq, gqd, consts, dq, dqd, dja,
-                            dh, E, dt);
+    drl::substep_vjp_kernel(q, qd, ja, ma, hinv, gq, gqd, consts, dq, dqd,
+                            dja, dma, dh, E, dt);
   }
 }
 """,
@@ -84,23 +87,39 @@ extern "C" void run(const float* q, const float* qd, const float* ja,
 # two or four inputs
 _N_IN = {"substep_forward": 4, "substep_vjp": 6}
 _N_OUT = {"substep_forward": 2, "substep_vjp": 4}
+# pointer arguments of run(): the inputs, ma, the constants, the outputs
+# and (the adjoint) dma
+_N_PTR = {"substep_forward": 8, "substep_vjp": 13}
 
 
 class HostKernel:
     """One kernel built for the host for one model: call it with env-minor
-    float32 numpy inputs; returns the outputs as numpy arrays."""
+    float32 numpy inputs (q, qd, joint_act, hinv[, gq, gqd]) and, for a
+    model with muscles, ``ma`` [M, E]; returns the outputs as numpy arrays:
+    (q', qd'), or (dq, dqd, djoint_act, dH) followed by dma when ``ma`` is
+    given."""
 
     def __init__(self, name, so, consts):
         self.name, self.so, self.consts = name, so, consts
 
-    def __call__(self, *inputs, dt):
+    def __call__(self, *inputs, dt, ma=None):
         ins = [np.ascontiguousarray(x, dtype=np.float32) for x in inputs]
         assert len(ins) == _N_IN[self.name]
         outs = [np.zeros_like(x) for x in ins[:_N_OUT[self.name]]]
         E = ins[0].shape[-1]
-        self.so.run(*(a.ctypes.data_as(ctypes.c_void_p)
-                      for a in (*ins, self.consts, *outs)), E, dt)
-        return outs
+        ma = None if ma is None else np.ascontiguousarray(ma, np.float32)
+        dma = None if ma is None else np.full_like(ma, np.nan)
+
+        def ptr(a):
+            return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+        if self.name == "substep_forward":
+            args = (*ins[:3], ma, ins[3], self.consts, *outs)
+        else:
+            args = (*ins[:3], ma, *ins[3:], self.consts, *outs[:3], dma,
+                    outs[3])
+        self.so.run(*map(ptr, args), E, dt)
+        return outs + ([dma] if dma is not None else [])
 
 
 def build_host_kernel(model, name, tmp):
@@ -119,8 +138,7 @@ def build_host_kernel(model, name, tmp):
          "-o", str(lib), str(tmp / "harness.cpp")],
         check=True, capture_output=True, text=True, timeout=300)
     so = ctypes.CDLL(str(lib))
-    n_ptr = _N_IN[name] + 1 + _N_OUT[name]
-    so.run.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int,
-                                                   ctypes.c_float]
+    so.run.argtypes = [ctypes.c_void_p] * _N_PTR[name] + [ctypes.c_int,
+                                                          ctypes.c_float]
     assert so.const_count() == consts.size
     return HostKernel(name, so, consts)

@@ -135,8 +135,8 @@ def test_entry_points_default_to_cuda():
         tenvs.make("Ant", num_envs=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         actor_from_jax({"mlp": [], "logstd": np.zeros(8)}, 37, 8, CFG)
-    with pytest.raises(KeyError):       # not ported yet
-        tenvs.make("SNUHumanoid", device="cpu")
+    with pytest.raises(KeyError):       # a name no package registers
+        tenvs.make("NoSuchEnv", device="cpu")
 
 
 def test_actor_and_obs_rms_through_converter(policy):

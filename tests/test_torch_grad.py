@@ -212,9 +212,10 @@ def test_vjp_check_rules():
         check_vjp("env 1", exact.float() + torch.tensor([[0.0, 0.0],
                                                          [0.0, 1e-3]]),
                   plain, 2e-4, 1e-5)
-    n_k, n_p, e_k, e_p, need = check_against_f64(
+    n_k, n_p, e_k, e_p, need, at_boundary = check_against_f64(
         "same", plain, plain, exact, 2e-4, 1e-5)
-    assert (n_k, n_p, need) == (0, 0, 0.0) and e_k == e_p > 0.0
+    assert (n_k, n_p, need, at_boundary) == (0, 0, 0.0, 0)
+    assert e_k == e_p > 0.0
 
 
 def test_check_kernel_and_env_distribution_rules():

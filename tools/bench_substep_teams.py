@@ -4,8 +4,9 @@
     python3 tools/bench_substep_teams.py [--env NAME] [T ...]
                                           (default: Ant, 8 16)
 
-Needs one CUDA device. Builds K1 and K2 for the env's model (Ant, Humanoid,
-Hopper or Cheetah) once per team size T (threads per env;
+Needs one CUDA device. Builds K1 and K2 for the env's model (any env of
+chip_smoke.py's MODELS; SNU Humanoid's muscles at random activations) once
+per team size T (threads per env;
 ``substep_kernels.team_layout``'s rule picks the one the port uses, and
 here the generated header's DRL_T line is set to each T in turn; the
 shared-memory slots do not depend on T), all nvcc processes together, and
@@ -35,8 +36,7 @@ import diffrl_tpu_torch.envs as envs  # noqa: E402
 from diffrl_tpu_torch import _build  # noqa: E402
 from diffrl_tpu_torch.sim import articulation_lb as lb  # noqa: E402
 from diffrl_tpu_torch.sim import substep_kernels as sk  # noqa: E402
-from diffrl_tpu_torch.testing import (F64_FLOOR, HUMANOID_FLOOR,  # noqa
-                                     check_kernel)
+from diffrl_tpu_torch.testing import check_kernel, f64_floor  # noqa
 
 E = 4096
 
@@ -84,47 +84,52 @@ def main(argv) -> int:
                   f"{blocks:.3f} blocks, {warps:.3f} warps per SM",
                   flush=True)
 
-    floor = HUMANOID_FLOOR if env_name == "Humanoid" else F64_FLOOR
+    floor = f64_floor(env_name)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     s = cs.settled_state(env, spec["settle"])
     acts = torch.rand((E, env.num_acts), generator=gen, device=dev) * 2 - 1
-    jat = env.action_to_controls(acts)[0].T.contiguous()
+    ja, ma = cs.controls(env, acts)
+    jat = ja.T.contiguous()
+    mat = ma.T.contiguous() if ma is not None else None
     h = env.dt / env.sim_substeps
     q, qd = s.joint_q.T.contiguous(), s.joint_qd.T.contiguous()
+
+    def f64(*xs):
+        return [None if t is None else t.double() for t in xs]
+
     with torch.no_grad():
-        q1, qd1, H, Hinv = lb.refresh_substep_lb(base, q, qd, jat, None, h)
+        q1, qd1, H, Hinv = lb.refresh_substep_lb(base, q, qd, jat, mat, h)
         gq = torch.randn(q1.shape, generator=gen, device=dev)
         gqd = torch.randn(qd1.shape, generator=gen, device=dev)
-        pf = lb.substep_lb(base, q1, qd1, jat, None, h, H, Hinv)
-        xf = lb.substep_lb(base, *(t.double() for t in (q1, qd1, jat)),
-                           None, h, H.double(), Hinv.double())
-        pv = lb.substep_vjp_lb(base, q1, qd1, jat, None, h, H, Hinv, gq,
+        pf = lb.substep_lb(base, q1, qd1, jat, mat, h, H, Hinv)
+        xf = lb.substep_lb(base, *f64(q1, qd1, jat, mat), h, *f64(H, Hinv))
+        pv = lb.substep_vjp_lb(base, q1, qd1, jat, mat, h, H, Hinv, gq,
                                gqd)
-        xv = lb.substep_vjp_lb(base, *(t.double() for t in (q1, qd1, jat)),
-                               None, h, *(t.double() for t in (H, Hinv, gq,
-                                                                gqd)))
+        xv = lb.substep_vjp_lb(base, *f64(q1, qd1, jat, mat), h,
+                               *f64(H, Hinv, gq, gqd))
         for T in teams:
             m = models[T]
-            kf = sk.substep_forward(m, q1, qd1, jat, None, h, H, Hinv)
-            kv = sk.substep_vjp(m, q1, qd1, jat, None, h, H, Hinv, gq, gqd)
+            kf = sk.substep_forward(m, q1, qd1, jat, mat, h, H, Hinv)
+            kv = sk.substep_vjp(m, q1, qd1, jat, mat, h, H, Hinv, gq, gqd)
             torch.cuda.synchronize()
             check_kernel(f"T={T} q", kf[0], pf[0], xf[0], 2e-5, 2e-6, floor)
             check_kernel(f"T={T} qd", kf[1], pf[1], xf[1], 2e-5, 2e-5,
                          floor)
-            for lab, a, b, x in zip(("dq", "dqd", "dja", "dH"),
-                                    kv[:3] + kv[4:], pv[:3] + pv[4:],
-                                    xv[:3] + xv[4:]):
-                check_kernel(f"T={T} {lab}", a, b, x, 2e-4, 1e-5, floor)
+            for lab, a, b, x in zip(("dq", "dqd", "dja", "dma", "dH"), kv,
+                                    pv, xv):
+                if a is not None:
+                    check_kernel(f"T={T} {lab}", a, b, x, 2e-4, 1e-5,
+                                 floor)
 
         times = {T: ([], []) for T in teams}
         for T in teams + teams[::-1]:
             m = models[T]
             times[T][0].append(statistics.median(cs.device_ms(
-                lambda: sk.substep_forward(m, q1, qd1, jat, None, h, H,
+                lambda: sk.substep_forward(m, q1, qd1, jat, mat, h, H,
                                            Hinv), 50) for _ in range(7)))
             times[T][1].append(statistics.median(cs.device_ms(
-                lambda: sk.substep_vjp(m, q1, qd1, jat, None, h, H, Hinv,
+                lambda: sk.substep_vjp(m, q1, qd1, jat, mat, h, H, Hinv,
                                        gq, gqd), 50) for _ in range(7)))
     for T in teams:
         f, v = times[T]

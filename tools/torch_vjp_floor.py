@@ -4,7 +4,9 @@
     python3 tools/torch_vjp_floor.py [--env NAME]     (default: Ant)
 
 Needs one CUDA device. On settled states of the env (zero-action env steps
-from reset, chip_smoke.py's MODELS) at E = 4096 (three seeds of actions and
+from reset, chip_smoke.py's MODELS; SNU Humanoid's muscles at random
+activations in (0, 1) x strength, whose cotangent dma is reported too) at
+E = 4096 (three seeds of actions and
 cotangents) and E = 1000 (one), it runs one cached substep through K1 and
 its VJP through K2, their plain versions in float32 and their plain
 versions in float64; for the first two seeds at E = 4096 also one env
@@ -13,14 +15,17 @@ prints the least floor that diffrl_tpu_torch.testing.check_against_f64
 would need with the kernel in the kernel's role, and with the roles of the
 kernel and the plain version swapped: where the plain version takes the
 float64 branch of every select, the second is the float32 noise the rule's
-floor must cover. It also prints each side's largest error against
-float64, and the entries where kernel and plain version differ by more
-than check_vjp allows: how many, and at how many of them the kernel is the
-one further from float64.
+floor must cover. Where either needs more than the model's floor
+(testing.f64_floor), it also prints how many envs are at a select's
+boundary (testing.near_f64) and the least floor of the others. It prints
+each side's largest error against float64, and the entries where kernel
+and plain version differ by more than check_vjp allows: how many, and at
+how many of them the kernel is the one further from float64.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import sys
@@ -33,18 +38,43 @@ import chip_smoke as cs  # noqa: E402
 import diffrl_tpu_torch.envs as envs  # noqa: E402
 from diffrl_tpu_torch.sim import articulation_lb as lb  # noqa: E402
 from diffrl_tpu_torch.sim import substep_kernels as sk  # noqa: E402
-from diffrl_tpu_torch.testing import check_against_f64, env_scale  # noqa
+from diffrl_tpu_torch.testing import (check_against_f64, env_scale,  # noqa
+                                      f64_floor, near_f64)
 
 CASES = ((4096, 1, True), (4096, 2, True), (4096, 3, False),
          (1000, 0, False))
 
 
-def report(what, labels, kernel, plain, exact, rtol, atol):
-    for lab, k, p, x in zip(labels, kernel, plain, exact):
-        *_, e_k, e_p, need = check_against_f64(lab, k, p, x, rtol, atol,
-                                               floor=math.inf)
+def report(what, labels, kernel, plain, exact, rtol, atol, near=None):
+    """Prints each output's least floors and errors (with ``near``, a
+    function of the output's index as testing.near_f64 gives, the envs at
+    a select's boundary apart, in either role: those that need more than
+    the model's floor against the exact answer and meet it against a
+    nearby one); returns the envs of the outputs whose least floor passes
+    100 (a select taken on another side, not float32 noise)."""
+    far = set()
+    floor = f64_floor(what.split()[0])
+    for i, (lab, k, p, x) in enumerate(zip(labels, kernel, plain, exact)):
+        *_, e_k, e_p, need, _ = check_against_f64(lab, k, p, x, rtol, atol,
+                                                  floor=math.inf)
+        if need > 100.0:
+            err = (k.double() - x).abs().reshape(-1, x.shape[-1]).amax(0)
+            far.add(int(err.argmax()))
         swapped = check_against_f64(lab, p, k, x, rtol, atol,
                                     floor=math.inf)[4]
+        for role, a, b, least in (("kernel", k, p, need),
+                                  ("swapped", p, k, swapped)):
+            if near is None or least <= floor:
+                continue
+            try:
+                r = check_against_f64(lab, a, b, x, rtol, atol, floor,
+                                      functools.partial(near, i))
+                at = (f"{r[5]} envs at a select's boundary, the others' "
+                      f"least floor {r[4]:.3f}")
+            except AssertionError as err:
+                at = str(err)
+            print(f"{what} {lab} ({role}): floor {floor:g} with the nearby "
+                  f"states: {at}", flush=True)
         off = (k - p).abs() > rtol * p.abs() + atol * env_scale(p)
         worse = off & ((k.double() - x).abs() > (p.double() - x).abs())
         print(f"{what} {lab}: least floor {need:.3f}, swapped "
@@ -52,6 +82,27 @@ def report(what, labels, kernel, plain, exact, rtol, atol):
               f"plain {e_p:.3e}; off the plain version {int(off.sum())}, "
               f"the kernel further from float64 at {int(worse.sum())}",
               flush=True)
+    return far
+
+
+def near_selects(model, q, qd, env):
+    """The env's ground contacts nearest to their two selects: the depth
+    c (c < 0 is in contact) and the squared tangential speed against its
+    guard 1e-12, smallest |value| first."""
+    from diffrl_tpu_torch.sim.articulation_lb import _cross, _fk, _tpoint
+
+    plan = lb._plan_for(model, q.device, q.dtype)
+    qe, qde = q[:, env:env + 1], qd[:, env:env + 1]
+    X_sc, X_sm = _fk(plan, qe)
+    _, v_s, _ = lb._id(plan, qe, qde, X_sc, X_sm)
+    X, v6 = X_sc[plan.contact_rows_t], v_s[plan.contact_rows_t]
+    p = (_tpoint(X, plan.contact_point)
+         - plan.ground_normal * plan.contact_dist)
+    dpdt = v6[:, 3:6] + _cross(v6[:, 0:3], p)
+    vt = dpdt - plan.ground_normal * dpdt[:, 1:2]
+    c = p[:, 1, 0]
+    vt2 = (vt * vt).sum(1)[:, 0] - 1e-12
+    return (sorted(c.abs().tolist())[:3], sorted(vt2.abs().tolist())[:3])
 
 
 def main(argv) -> int:
@@ -71,41 +122,59 @@ def main(argv) -> int:
         gen.manual_seed(seed)
         s = cs.settled_state(env, spec["settle"])
         acts = torch.rand((E, env.num_acts), generator=gen, device=dev) * 2 - 1
-        ja = env.action_to_controls(acts)[0]
+        ja, ma = cs.controls(env, acts)
         jat = ja.T.contiguous()
+        mat = ma.T.contiguous() if ma is not None else None
         h = env.dt / env.sim_substeps
         q, qd = s.joint_q.T.contiguous(), s.joint_qd.T.contiguous()
         with torch.no_grad():
             q1, qd1, H, Hinv = lb.refresh_substep_lb(env.model, q, qd, jat,
-                                                     None, h)
+                                                     mat, h)
         gq = torch.randn(q1.shape, generator=gen, device=dev)
         gqd = torch.randn(qd1.shape, generator=gen, device=dev)
-        args = (env.model, q1, qd1, jat, None, h, H, Hinv, gq, gqd)
-        d64 = [t.double() for t in args[1:4]]
+        args = (env.model, q1, qd1, jat, mat, h, H, Hinv, gq, gqd)
+
+        def f64(*xs):
+            return [None if t is None else t.double() for t in xs]
+
         kf = sk.substep_forward(*args[:8])
         pf = lb.substep_lb(*args[:8])
-        xf = lb.substep_lb(env.model, *d64, None, h, H.double(),
-                           Hinv.double())
+        xf = lb.substep_lb(env.model, *f64(q1, qd1, jat, mat), h,
+                           *f64(H, Hinv))
+        nf = near_f64(lambda q_, qd_: lb.substep_lb(
+            env.model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv)), q1, qd1)
         report(f"{name} E={E} seed {seed} substep forward", ("q", "qd"),
-               kf, pf, xf, 2e-5, 2e-5)
+               kf, pf, xf, 2e-5, 2e-5, nf)
         kv = sk.substep_vjp(*args)
         pv = lb.substep_vjp_lb(*args)
-        xv = lb.substep_vjp_lb(env.model, *d64, None, h,
-                               *(t.double() for t in args[6:]))
-        report(f"{name} E={E} seed {seed} substep", ("dq", "dqd",
-                                                     "djoint_act", "dH"),
-               kv[:3] + kv[4:], pv[:3] + pv[4:], xv[:3] + xv[4:], 2e-4, 1e-5)
+        xv = lb.substep_vjp_lb(env.model, *f64(q1, qd1, jat, mat), h,
+                               *f64(*args[6:]))
+        nv = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
+            env.model, q_, qd_, *f64(jat, mat), h, *f64(*args[6:])), q1,
+            qd1)
+        keep = [i for i in range(5) if kv[i] is not None]
+        far = report(f"{name} E={E} seed {seed} substep",
+                     [("dq", "dqd", "djoint_act", "dma", "dH")[i]
+                      for i in keep],
+                     [kv[i] for i in keep], [pv[i] for i in keep],
+                     [xv[i] for i in keep], 2e-4, 1e-5,
+                     lambda j: nv(keep[j]))
+        for e in sorted(far):
+            c, vt2 = near_selects(env.model, q1, qd1, e)
+            print(f"{name} E={E} seed {seed} env {e}: smallest |contact "
+                  f"depth| {c}, smallest |tangential speed^2 - 1e-12| "
+                  f"{vt2}", flush=True)
         if with_step:
             w_q = torch.randn(s.joint_q.shape, generator=gen, device=dev)
             w_qd = torch.randn(s.joint_qd.shape, generator=gen, device=dev)
-            gargs = (s.joint_q, s.joint_qd, ja, w_q, w_qd, mm,
+            gargs = (s.joint_q, s.joint_qd, ja, ma, w_q, w_qd, mm,
                      env.sim_substeps)
             kg = cs.step_grad(env.model, *gargs, plain=False)
             pg = cs.step_grad(env.model, *gargs, plain=True)
-            xg = cs.step_grad(env.model, *(t.double() for t in gargs[:5]),
-                              mm, env.sim_substeps, plain=True)
+            xg = cs.step_grad(env.model, *f64(*gargs[:6]), mm,
+                              env.sim_substeps, plain=True)
             report(f"{name} E={E} seed {seed} env step",
-                   ("dq", "dqd", "djoint_act"), [t.T for t in kg],
+                   ("dq", "dqd", "djoint_act", "dma"), [t.T for t in kg],
                    [t.T for t in pg], [t.T for t in xg], 1e-3, 1e-4)
     print(cs.card_line())
     return 0
