@@ -21,29 +21,41 @@ raises and the script exits non-zero:
               active (CartPole has no ground; SNU Humanoid's muscles at
               activations in (0, 1) x strength): one cached substep, K1
               against its plain version substep_lb and float64 (q rtol 2e-5
-              atol 2e-6, qd rtol 2e-5 atol 2e-5), and one whole env step
-              (Ant, Hopper, Cheetah 16 substeps, mm 16; Humanoid 48, mm 48;
+              atol 2e-6, qd rtol 2e-5 atol 2e-5) and K2 against
+              substep_vjp_lb and float64 (rtol 2e-4, atol 1e-5), the
+              muscle activations' cotangent dma included; how many envs
+              have a select within testing.SELECT_ULPS float32 units of
+              its boundary, and the plain path's float32 rounding of the
+              select arguments in those units (what SELECT_ULPS is set
+              from); plus the prismatic + revolute model without ground (K1
+              elementwise).
+4. adjoint -- per model on the same state: one whole env step (Ant,
+              Hopper, Cheetah 16 substeps, mm 16; Humanoid 48, mm 48;
               CartPole 4, mm 4; SNU Humanoid 48, mm 8), kernel path against
-              plain path and float64 (rtol/atol 1e-4); plus the prismatic +
-              revolute model without ground (K1 elementwise).
-4. adjoint -- per model on the same state: one cached substep, K2 against
-              its plain version substep_vjp_lb and float64 (rtol 2e-4, atol
-              1e-5), the muscle activations' cotangent dma included; the
-              env step's gradient of a fixed weighted sum of (q', qd')
-              w.r.t. (q, qd, joint_act, muscle activations), kernel path
-              against plain path and float64 (rtol 1e-3, atol 1e-4).
+              plain path and float64 (rtol/atol 1e-4), and its gradient of
+              a fixed weighted sum of (q', qd') w.r.t. (q, qd, joint_act,
+              muscle activations), kernel path against plain path and
+              float64 (rtol 1e-3, atol 1e-4).
               The rules are diffrl_tpu_torch/testing.py's: entry by entry
               no further from float64 than twice the float32 plain
               version's error plus rtol and a floor (8, Humanoid 90, SNU
               Humanoid 60) times
               the plain version's largest error in that env, the distance
-              to the plain version reported; an env that meets the rule
-              only against the float64 answer at a state within float32
-              rounding of the inputs is at a select's boundary, counted
-              apart (testing.near_f64); a whole Humanoid env step,
+              to the plain version reported; an env that breaks the rule
+              while one of its named selects lies within
+              testing.SELECT_ULPS float32 units of its boundary is at that
+              boundary, counted apart and named with the select and its
+              margin (articulation_lb.select_margins); a failing check
+              saves the env's inputs under build/witness/
+              (tools/replay_witness.py replays them); a whole Humanoid env
+              step,
               chaotic in float32, per env at the median and the 90th
               percentile, at most twice the plain path's error (SNU
               Humanoid's whole step too).
+   repeat  -- Ant, Humanoid and SNU Humanoid at E = 4096: the plain
+              refresh substep, cached substep and both their VJPs, run
+              twice on the same inputs, give the same bits (fixed-order
+              sums, testing.check_repeatable).
 5. fixture -- the kernel path against the dflex golden trajectories
               tests/fixtures/env_ant_mjcf.npz (40 steps of 16 substeps;
               atol 1e-5 on the first 15, 1e-4 on all),
@@ -51,19 +63,35 @@ raises and the script exits non-zero:
               1e-4 on the first 15, 1e-3 on all), env_cartpole_urdf.npz (60
               steps of 4 substeps, mm 4; 1e-5 and 1e-4) and
               env_snu_muscles.npz (16 steps of 48 substeps, mm 48, the 152
-              muscles at 0.05 of their peak force; 1e-4 and 1e-3).
+              muscles at 0.05 of their peak force; 1e-4 and 1e-3); and the
+              seven articulation scenes of tests/parity_scenes.py
+              (pendulum2, pendulum2_mm1 on the plain path alone, cartpole,
+              ball_joint, freefall_box, muscle_pendulum, arm7) at E = 1 at
+              tests/test_parity.py's tolerances.
 6. main    -- the rollout path: Ant with 4096 envs, mm 16, stochastic init,
               the SHAC Ant actor (128/64/32, ELU + LayerNorm) and obs_rms,
               batched_eval for 64 env steps of deterministic actions.
-7. train   -- the training paths: SHAC(cfg).train() from
-              examples/cfg/shac/{ant,humanoid,hopper,cheetah,
-              cartpole_swing_up,snu_humanoid}.yaml at 4096 envs x 32 steps
-              (Ant and Humanoid 2 epochs, the others 1); K1 and K2 launch
-              epochs x 32 x (substeps / mm) x (mm - 1) times each (Humanoid
-              2 x 32 x 47 = 3,008; CartPole 32 x 3 = 96; SNU Humanoid 32 x
-              6 x 7 = 1,344); seconds per epoch, training env-steps/s, peak
-              memory, finite losses, a changed actor; one more epoch of
-              Ant, Humanoid and SNU Humanoid split into its phases.
+7. train   -- the training paths, one table (TRAINERS) and one harness,
+              each through the trainer's train() from
+              examples/cfg/<algo>/<cfg>: SHAC from
+              shac/{ant,humanoid,hopper,cheetah,cartpole_swing_up,
+              snu_humanoid}.yaml at 4096 envs x 32 steps (Ant and Humanoid
+              2 epochs, the others 1; K1 and K2 launch 32 x (substeps / mm)
+              x (mm - 1) times each per epoch: Humanoid 1,504, CartPole
+              96, SNU Humanoid 1,344); BPTT from bptt/ant.yaml (32 envs,
+              steps_num cut from 1,000 to 100: K1 and K2 1,500 each) and
+              cartpole_swing_up.yaml (64 x 240: 720 each); PPO from
+              ppo/ant.yaml (2048 x 32, minibatches of 16,384, 5
+              mini-epochs: K1 480, K2 0); SAC from sac/ant.yaml (128 x 128,
+              batch 4,096, ring of 999,936; num_seed_steps cut from 5 to
+              1, then one learning epoch: K1 1,920 and K2 0 per epoch).
+              Per epoch: seconds, env-steps/s, peak memory, host syncs
+              and launches; finite statistics, a changed policy. After
+              each path's epochs, one launch of K1 and of K2 at the
+              path's own E on the trainer's last env state, held against
+              the plain versions and float64 as in phases 3-4. One more
+              epoch of SHAC Ant, Humanoid and SNU Humanoid, BPTT Ant and
+              PPO Ant split into its phases.
 8. timing  -- per model, device time per launch of both kernels (CUDA
               events with the host queued ahead), per-call times, the plain
               versions as CUDA graphs; for Ant, Humanoid and SNU Humanoid
@@ -71,15 +99,16 @@ raises and the script exits non-zero:
               random-action env-steps/s on Ant.
 
 Before the last line it prints the nvidia-smi line and one JSON line with
-each kernel's launches per model (in its training path), errors, times,
-bound, threads per env and warps per SM; the last line is
+each kernel's launches per model (over its SHAC training path's epochs,
+and over each path's epochs in launches_by_path), errors, times, bound,
+threads per env and warps per SM; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import importlib.util
 import json
 import math
 import os
@@ -89,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -136,6 +166,39 @@ FIXTURES = {
     "SNUHumanoid": ("env_snu_muscles.npz", 48, np.zeros,
                     lambda env: [0.05 * m.peak_force
                                  for m in env.skeleton.muscles], 1e-4, 1e-3),
+}
+# the seven articulation-only dflex scenes of tests/parity_scenes.py, at
+# tests/test_parity.py's tolerances (atol on the first 30 steps, on all;
+# joint velocities at 20 times the second)
+SCENES = ("pendulum2", "pendulum2_mm1", "cartpole", "ball_joint",
+          "freefall_box", "muscle_pendulum", "arm7")
+SCENE_TOL = {"freefall_box": (1e-4, 5e-3)}
+# the training paths, from examples/cfg/<algo>/<cfg> through the trainer's
+# train(): the model they run, the config's entries set here, epochs (SAC:
+# its seed epoch, then a learning epoch) and K1 and K2 launches per epoch
+# (steps x substeps / mm x (mm - 1)). SHAC runs every model at E envs x
+# TRAIN_STEPS; the others run at the config's widths (num_actors,
+# networks, substeps, mm, batch sizes), with the cuts made. The epochs of
+# the paths marked "split" are followed by one more, split into phases.
+TRAINERS = {
+    **{f"SHAC {name}": dict(
+        algo="shac", model=name, cfg=spec["cfg"],
+        config=dict(num_actors=E, steps_num=TRAIN_STEPS),
+        epochs=spec["epochs"], split=name in SPLIT,
+        launches=(TRAIN_STEPS * spec["substeps"] // spec["mm"]
+                  * (spec["mm"] - 1),) * 2)
+       for name, spec in MODELS.items()},
+    "BPTT Ant": dict(algo="bptt", model="Ant", cfg="ant.yaml",
+                     config=dict(steps_num=100), epochs=1, split=True,
+                     launches=(1500, 1500)),
+    "BPTT CartPole": dict(algo="bptt", model="CartPoleSwingUp",
+                          cfg="cartpole_swing_up.yaml", config={}, epochs=1,
+                          split=False, launches=(720, 720)),
+    "PPO Ant": dict(algo="ppo", model="Ant", cfg="ant.yaml", config={},
+                    epochs=1, split=True, launches=(480, 0)),
+    "SAC Ant": dict(algo="sac", model="Ant", cfg="ant.yaml",
+                    config=dict(num_seed_steps=1), epochs=2, split=False,
+                    launches=(1920, 0)),
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside
 # the tensor cores
@@ -320,15 +383,17 @@ def prismatic_model():
 
 
 def hold(name, what, got, plain, exact, rtol, atol, whole_step=False,
-         near=None):
+         margins=None, witness=None):
     """A kernel's output against its plain version and float64 by the rules
     of diffrl_tpu_torch/testing.py: check_kernel (with the model's floor,
-    and ``near`` for the envs at a select's boundary), and for a whole
-    Humanoid or SNU Humanoid env step, whose float32 results are chaotic,
-    check_env_distribution. Returns (max |got - plain|, a summary: entries
-    off the plain version by check_vjp's bound, entries outside rtol/atol
-    vs float64 kernel/plain, max error vs float64 kernel/plain, least floor
-    of the float64 rule, envs at a select's boundary; or the per-env error
+    the select margins that set envs at a select's boundary apart, and a
+    witness of the inputs that a failure saves under build/witness/), and
+    for a whole Humanoid or SNU Humanoid env step, whose float32 results
+    are chaotic, check_env_distribution. Returns (max |got - plain|, a
+    summary: entries off the plain version by check_vjp's bound, entries
+    outside rtol/atol vs float64 kernel/plain, max error vs float64
+    kernel/plain, least floor of the float64 rule, envs at a select's
+    boundary with their selects and margins; or the per-env error
     quantiles)."""
     from diffrl_tpu_torch.testing import (check_env_distribution,
                                           check_kernel, f64_floor)
@@ -338,98 +403,130 @@ def hold(name, what, got, plain, exact, rtol, atol, whole_step=False,
         return float((got - plain).abs().max()), f"{what} per-env error " \
             "kernel/plain " + ", ".join(f"q{q:g} {k:.2e}/{p:.2e}"
                                         for q, (k, p) in qs.items())
+    apart = []
     err, off, (a, b, c, d, n, nb) = check_kernel(
         f"{name} {what}", got, plain, exact, rtol, atol, f64_floor(name),
-        near)
-    return err, f"{what} {off} {a}/{b} {c:.2e}/{d:.2e} {n:.1e} {nb}"
+        margins, witness, apart)
+    at = f" ({'; '.join(apart)})" if apart else ""
+    return err, f"{what} {off} {a}/{b} {c:.2e}/{d:.2e} {n:.1e} {nb}{at}"
 
 
-def check_model(name, env, gen):
-    """K1 and K2 against their plain versions on ``env`` (E envs) at a
-    settled state with ground contacts active (where the model has a
-    ground), and one whole env step's values and gradient, kernel path
-    against plain path. Returns what the timing phase reuses and the
-    largest errors."""
+def hold_kernels(name, env, s, gen, what):
+    """One launch each of K1 and K2 at ``env``'s own E, held against their
+    plain versions and float64 by ``hold`` (the select margins and a
+    witness passed): the plain refresh substep at the env state ``s`` under
+    random actions from ``gen``, then one cached substep and its VJP under
+    random cotangents from ``gen``. Also measures how near the selects lie
+    to their boundaries: the envs with a select within SELECT_ULPS units,
+    and the plain path's float32 rounding of the select arguments
+    (articulation_lb.select_rounding, what SELECT_ULPS is set from).
+    Prints one line; returns what the callers reuse."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
     from diffrl_tpu_torch.sim import substep_kernels as sk
-    from diffrl_tpu_torch.testing import near_f64
+    from diffrl_tpu_torch.testing import substep_witness as witness
 
-    model, mm = env.model, MODELS[name]["mm"]
-    substeps = env.sim_substeps
-    h = env.dt / substeps
-    K = len(lb._plan_for(model, env.device).contact_rows)
-    s1 = settled_state(env, MODELS[name]["settle"])
-    acts = torch.rand((E, env.num_acts), generator=gen,
+    model, n, ulps = env.model, env.num_envs, lb.SELECT_ULPS
+    h = env.dt / env.sim_substeps
+    acts = torch.rand((n, env.num_acts), generator=gen,
                       device=env.device) * 2 - 1
     ja, ma = controls(env, acts)
     jat = ja.T.contiguous()
     mat = ma.T.contiguous() if ma is not None else None
-    q, qd = s1.joint_q.T.contiguous(), s1.joint_qd.T.contiguous()
+    q, qd = s.joint_q.T.contiguous(), s.joint_qd.T.contiguous()
 
     def f64(*xs):
         return [None if x is None else x.double() for x in xs]
 
     with torch.no_grad():
         q1, qd1, H, Hinv = lb.refresh_substep_lb(model, q, qd, jat, mat, h)
-        n_active = sk.active_contacts(model, q1)
-        if K and n_active < E:
-            raise RuntimeError(f"{name}: only {n_active} ground contacts "
-                               f"active over {E} envs: not settled")
-        fargs = (model, q1, qd1, jat, mat, h, H, Hinv)
-        n0 = sk.substep_forward.launches
+    gq = torch.randn(q1.shape, generator=gen, device=env.device)
+    gqd = torch.randn(qd1.shape, generator=gen, device=env.device)
+    fargs = (model, q1, qd1, jat, mat, h, H, Hinv)
+    vargs = fargs + (gq, gqd)
+    with torch.no_grad():
+        n0 = (sk.substep_forward.launches, sk.substep_vjp.launches)
         kf = sk.substep_forward(*fargs)
-        if sk.substep_forward.launches != n0 + 1:
-            raise RuntimeError("substep_forward did not launch its kernel")
-        pf = lb.substep_lb(*fargs)
-        xf = lb.substep_lb(model, *f64(q1, qd1, jat, mat), h,
-                           *f64(H, Hinv))
+        kv = sk.substep_vjp(*vargs)
+        if (sk.substep_forward.launches, sk.substep_vjp.launches) != (
+                n0[0] + 1, n0[1] + 1):
+            raise RuntimeError(f"{name} {what}: the kernels did not launch")
+        pf, pv = lb.substep_lb(*fargs), lb.substep_vjp_lb(*vargs)
+        xf = lb.substep_lb(model, *f64(q1, qd1, jat, mat), h, *f64(H, Hinv))
+        xv = lb.substep_vjp_lb(model, *f64(q1, qd1, jat, mat), h,
+                               *f64(H, Hinv, gq, gqd))
+    torch.cuda.synchronize()
+    margins = lb.select_margins(model, q1, qd1)
+    rounding = lb.select_rounding(model, q1, qd1)
+    least = torch.stack(list(margins.values())).amin(0)
+    near = {k: int((v <= ulps).sum()) for k, v in margins.items()
+            if bool(torch.isfinite(v).any())}
+    fwd = [hold(name, f"substep {lab}", k, p, x, 2e-5, atol, margins=margins,
+                witness=witness(name, "substep_forward", i, fargs))
+           for i, (lab, k, p, x, atol) in enumerate((
+               ("q", kf[0], pf[0], xf[0], 2e-6),
+               ("qd", kf[1], pf[1], xf[1], 2e-5)))]
+    labs = ("dq", "dqd", "djoint_act", "dma", "dH")
+    vjp = [hold(name, f"substep_vjp {lab}", kx, px, xx, 2e-4, 1e-5,
+                margins=margins,
+                witness=witness(name, "substep_vjp", i, vargs))
+           for i, (lab, kx, px, xx) in enumerate(zip(labs, kv, pv, xv))
+           if kx is not None]
+    out = dict(fargs=fargs, vargs=vargs, acts=acts, ja=ja, ma=ma,
+               n_active=sk.active_contacts(model, q1), near=near,
+               n_near=int((least <= ulps).sum()), rounding=rounding,
+               err_fwd=max(e for e, _ in fwd), err_vjp=max(e for e, _ in vjp))
+    phase("kernel", f"{name} {what} E={n}, {out['n_active']} contacts "
+          f"active: one cached substep, K1 vs plain max err "
+          f"{out['err_fwd']:.3e} (rtol 2e-5, atol 2e-6/2e-5) and K2 vs plain "
+          f"max err {out['err_vjp']:.3e} (rtol 2e-4, atol 1e-5); per output: "
+          f"entries off the plain version by check_vjp's bound, vs float64 "
+          f"entries outside rtol/atol kernel/plain, max err kernel/plain, "
+          f"least floor of the 2x-plain rule, envs at a select's boundary: "
+          + "; ".join(t for _, t in fwd + vjp) + f" | envs with a select "
+          f"within SELECT_ULPS = {ulps:g} units: {out['n_near']} of "
+          f"{n} (" + ", ".join(f"{k} {v}" for k, v in near.items())
+          + "); the plain path's float32 rounding of the select arguments, "
+          "max units: " + (", ".join(f"{k} {v:.2f}"
+                                     for k, v in rounding.items()) or "none"))
+    return out
+
+
+def check_model(name, env, gen):
+    """K1 and K2 against their plain versions on ``env`` (E envs) at a
+    settled state with ground contacts active (where the model has a
+    ground; hold_kernels), and one whole env step's values and gradient,
+    kernel path against plain path. Returns what the timing phase reuses
+    and the largest errors."""
+    from diffrl_tpu_torch.sim import articulation_lb as lb
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    model, mm = env.model, MODELS[name]["mm"]
+    substeps = env.sim_substeps
+    h = env.dt / substeps
+    K = len(lb._plan_for(model, env.device).contact_rows)
+    s1 = settled_state(env, MODELS[name]["settle"])
+    chk = hold_kernels(name, env, s1, gen,
+                       f"settled {MODELS[name]['settle']} steps")
+    if K and chk["n_active"] < E:
+        raise RuntimeError(f"{name}: only {chk['n_active']} ground contacts "
+                           f"active over {E} envs: not settled")
+    ja, ma, acts = chk["ja"], chk["ma"], chk["acts"]
+    jat, mat = chk["fargs"][3], chk["fargs"][4]
+    q, qd = s1.joint_q.T.contiguous(), s1.joint_qd.T.contiguous()
+
+    def f64(*xs):
+        return [None if x is None else x.double() for x in xs]
+
+    with torch.no_grad():
         sq, sqd = lb.simulate_batched_lb(
             model, s1.joint_q, s1.joint_qd, ja, ma, dt=env.dt,
             substeps=substeps, mass_matrix_freq=mm)
         rs = plain_step(model, q, qd, jat, mat, h, mm, substeps)
         xs = plain_step(model, *f64(q, qd, jat, mat), h, mm, substeps)
     torch.cuda.synchronize()
-    near = near_f64(lambda q_, qd_: lb.substep_lb(
-        model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv)), q1, qd1)
-    fwd = [hold(name, f"substep {lab}", k, p, x, 2e-5, atol,
-                near=functools.partial(near, i))
-           for i, (lab, k, p, x, atol) in enumerate((
-               ("q", kf[0], pf[0], xf[0], 2e-6),
-               ("qd", kf[1], pf[1], xf[1], 2e-5)))]
     step = [hold(name, f"step {lab}", k, p, x, 1e-4, 1e-4, whole_step=True)
             for lab, k, p, x in (("q", sq.T, rs[0], xs[0]),
                                  ("qd", sqd.T, rs[1], xs[1]))]
-    err_fwd = max(e for e, _ in fwd)
-    phase("kernel", f"{name} E={E} settled {MODELS[name]['settle']} steps: "
-          f"one cached substep K1 vs plain max err {err_fwd:.3e}; per "
-          f"output: entries off the plain version by check_vjp's bound, vs "
-          f"float64 entries outside rtol 2e-5 atol 2e-6/2e-5 kernel/plain, "
-          f"max err kernel/plain, least floor of the 2x-plain rule, envs "
-          f"at a select's boundary: "
-          + "; ".join(t for _, t in fwd) + f" | one env step ({substeps} "
-          f"substeps, mm {mm}) kernel path vs plain max err "
-          f"{max(e for e, _ in step):.3e}; vs float64: "
-          + "; ".join(t for _, t in step))
-
-    gq = torch.randn(q1.shape, generator=gen, device=env.device)
-    gqd = torch.randn(qd1.shape, generator=gen, device=env.device)
-    vargs = (model, q1, qd1, jat, mat, h, H, Hinv, gq, gqd)
-    n0 = sk.substep_vjp.launches
-    kv = sk.substep_vjp(*vargs)
-    if sk.substep_vjp.launches != n0 + 1:
-        raise RuntimeError("substep_vjp did not launch its kernel")
-    pv = lb.substep_vjp_lb(*vargs)
-    xv = lb.substep_vjp_lb(model, *f64(q1, qd1, jat, mat), h,
-                           *f64(H, Hinv, gq, gqd))
-    torch.cuda.synchronize()
-    near = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
-        model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv, gq, gqd)), q1, qd1)
-    labs = ("dq", "dqd", "djoint_act", "dma", "dH")
-    vjp = [hold(name, f"substep_vjp {lab}", kx, px, xx, 2e-4, 1e-5,
-                near=functools.partial(near, i))
-           for i, (lab, kx, px, xx) in enumerate(zip(labs, kv, pv, xv))
-           if kx is not None]
-    err_vjp = max(e for e, _ in vjp)
     w_q = torch.randn(s1.joint_q.shape, generator=gen, device=env.device)
     w_qd = torch.randn(s1.joint_qd.shape, generator=gen, device=env.device)
     gargs = (s1.joint_q, s1.joint_qd, ja, ma, w_q, w_qd, mm, substeps)
@@ -447,15 +544,13 @@ def check_model(name, env, gen):
                  whole_step=True)
             for lab, kx, px, xx in zip(("dq", "dqd", "djoint_act", "dma"),
                                        kg, pg, xg)]
-    phase("adjoint", f"{name} E={E}, {n_active} of {E * K} contacts "
-          f"active: one cached substep K2 vs plain max err {err_vjp:.3e}; "
-          f"per output as in the kernel line (rtol 2e-4 atol 1e-5): "
-          + "; ".join(t for _, t in vjp) + " | one env step grad kernel "
+    phase("adjoint", f"{name} E={E}: one env step ({substeps} substeps, mm "
+          f"{mm}) kernel path vs plain max err "
+          f"{max(e for e, _ in step):.3e}; vs float64 (rtol/atol 1e-4): "
+          + "; ".join(t for _, t in step) + " | one env step grad kernel "
           f"path vs plain max err {max(e for e, _ in grad):.3e}; vs "
           f"float64 (rtol 1e-3 atol 1e-4): " + "; ".join(t for _, t in grad))
-    return dict(fargs=fargs, vargs=vargs,
-                step_state=(s1, ja, acts), gargs=gargs, n_active=n_active,
-                err_fwd=err_fwd, err_vjp=err_vjp)
+    return dict(chk, step_state=(s1, ja, acts), gargs=gargs)
 
 
 def check_fixture(name, env, dev):
@@ -497,97 +592,201 @@ def check_fixture(name, env, dev):
           f"({len(traj)} steps, atol {full:g})")
 
 
-def train(name, dev, card):
-    """SHAC(cfg).train() from examples/cfg/shac/<cfg> at E envs x
-    TRAIN_STEPS, MODELS[name]['epochs'] epochs, with the launch counts set
-    to 0 just before and read just after. Returns (trainer, launches)."""
+def scene_run(name, device):
+    """The dflex scene ``name`` of tests/parity_scenes.py built with the
+    port's ModelBuilder and run at E = 1 through simulate_batched_lb (its
+    cached substeps through K1 on CUDA), against its golden trajectory at
+    SCENE_TOL. Returns (max |dq| over the first 30 steps, over all, max
+    |dqd|, forward kernel launches)."""
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+    from diffrl_tpu_torch.sim.articulation_lb import simulate_batched_lb
+    from diffrl_tpu_torch.sim.model import ModelBuilder
+
+    spec_ = importlib.util.spec_from_file_location(
+        "parity_scenes", os.path.join(ROOT, "tests", "parity_scenes.py"))
+    scenes = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(scenes)
+    scene = scenes.SCENES[name]
+    b = ModelBuilder()
+    extra = scene["build"](b, lambda p, q: np.concatenate(
+        [np.asarray(p, float), np.asarray(q, float)]))
+    model = dataclasses.replace(b.finalize(),
+                                ground=scene.get("ground", False))
+    ma = extra.get("muscle_activation")
+    ma = None if ma is None else torch.as_tensor(
+        ma, dtype=torch.float32, device=device)[None]
+    q = torch.as_tensor(model.joint_q_init, device=device)[None]
+    qd = torch.zeros((1, model.dof_count), device=device)
+    ss = scene.get("substeps", 4)
+    qs, qds = [], []
+    n0 = sk.substep_forward.launches
+    with torch.no_grad():
+        for _ in range(scene.get("steps", 60)):
+            q, qd = simulate_batched_lb(model, q, qd, None, ma,
+                                        dt=scene.get("dt", 1.0 / 60.0),
+                                        substeps=ss,
+                                        mass_matrix_freq=scene.get(
+                                            "mm_freq", ss))
+            qs.append(q[0])
+            qds.append(qd[0])
+    fix = np.load(os.path.join(ROOT, "tests", "fixtures", f"{name}.npz"))
+    got, got_qd = (torch.stack(x).cpu().numpy() for x in (qs, qds))
+    early, full = SCENE_TOL.get(name, (1e-5, 1e-4))
+    np.testing.assert_allclose(got[:30], fix["joint_q"][:30], atol=early,
+                               err_msg=name)
+    np.testing.assert_allclose(got, fix["joint_q"], atol=full, err_msg=name)
+    np.testing.assert_allclose(got_qd, fix["joint_qd"], atol=20 * full,
+                               err_msg=name)
+    return (float(np.abs(got[:30] - fix["joint_q"][:30]).max()),
+            float(np.abs(got - fix["joint_q"]).max()),
+            float(np.abs(got_qd - fix["joint_qd"]).max()),
+            sk.substep_forward.launches - n0)
+
+
+def host_syncs(fn):
+    """(fn(), the host syncs torch's sync debug mode saw during it)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def trainer_params(trainer):
+    for attr in ("actor", "network"):
+        if hasattr(trainer, attr):
+            return list(getattr(trainer, attr).parameters())
+    raise AttributeError("no actor")
+
+
+def train(label, dev, card, gen):
+    """The epochs of TRAINERS[label] through the trainer's train(), with the
+    launch counts set to 0 just before and read just after, and read per
+    epoch as well; then K1 and K2 held against their plain versions at the
+    trainer's own E on its last env state (hold_kernels). Returns (trainer,
+    [per epoch: dict of seconds, peak GB, host syncs, launches]) and checks
+    the launch counts, finite statistics and a changed policy."""
     import yaml
 
-    from diffrl_tpu_torch.algorithms import SHAC
+    from diffrl_tpu_torch.algorithms import BPTT, PPO, SAC, SHAC
     from diffrl_tpu_torch.sim import substep_kernels as sk
 
-    spec = MODELS[name]
-    epochs, mm, substeps = spec["epochs"], spec["mm"], spec["substeps"]
-    with open(os.path.join(ROOT, "examples", "cfg", "shac",
+    spec = TRAINERS[label]
+    with open(os.path.join(ROOT, "examples", "cfg", spec["algo"],
                            spec["cfg"])) as f:
         cfg = yaml.safe_load(f)
-    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_shac_{name}_")
+    config = cfg["params"]["config"]
+    changed = [f"{k} {config.get(k)} -> {v}"
+               for k, v in spec["config"].items() if config.get(k) != v]
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     cfg["params"]["general"] = {"logdir": logdir, "seed": 0}
-    cfg["params"]["config"].update(num_actors=E, steps_num=TRAIN_STEPS,
-                                   max_epochs=epochs, save_interval=0)
-    trainer = SHAC(cfg, device=dev)
-    if (trainer.env.sim_substeps, trainer.env.mm_caching_frequency) != \
-            (substeps, mm):
-        raise RuntimeError(f"the {name} config no longer runs {substeps} "
-                           f"substeps, mm {mm}")
-    before = [p.detach().clone() for p in trainer.actor.parameters()]
-    peaks_gb = []
+    config.update(max_epochs=spec["epochs"], save_interval=0,
+                  save_frequency=0, **spec["config"])
+    cls = {"shac": SHAC, "bptt": BPTT, "ppo": PPO, "sac": SAC}[spec["algo"]]
+    trainer = cls(cfg, device=dev)
+    before = [p.detach().clone() for p in trainer_params(trainer)]
     train_epoch = trainer.train_epoch
+    records = []
 
-    def epoch_with_peak():
-        # the allocator's counters are host-side: no sync added
+    def recorded(*args, **kwargs):
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out = train_epoch()
-        peaks_gb.append(torch.cuda.max_memory_allocated() / 1e9)
+        n = (sk.substep_forward.launches, sk.substep_vjp.launches)
+        t = time.perf_counter()
+        out, syncs = host_syncs(lambda: train_epoch(*args, **kwargs))
+        torch.cuda.synchronize()
+        records.append(dict(
+            s=time.perf_counter() - t,
+            gb=torch.cuda.max_memory_allocated() / 1e9, syncs=syncs,
+            launches=(sk.substep_forward.launches - n[0],
+                      sk.substep_vjp.launches - n[1])))
         return out
 
-    trainer.train_epoch = epoch_with_peak
-    torch.cuda.synchronize()
+    trainer.train_epoch = recorded
     sk.substep_forward.launches = sk.substep_vjp.launches = 0
-    t0 = time.perf_counter()
     trainer.train()
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
     launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
     trainer.train_epoch = train_epoch
     shutil.rmtree(logdir)
-    want = epochs * TRAIN_STEPS * (substeps // mm) * (mm - 1)
-    if launches != (want, want):
-        raise RuntimeError(f"the {name} training path launched "
-                           f"(substep_forward, substep_vjp) {launches} "
-                           f"times, expected {want} each")
-    losses = [v for k in ("actor_loss", "value_loss")
-              for _, _, v in trainer.scalars[k]]
-    if len(losses) != 2 * epochs or not all(map(math.isfinite, losses)):
-        raise RuntimeError(f"{name} training losses {losses}")
+    if any(r["launches"] != spec["launches"] for r in records) or \
+            launches != tuple(spec["epochs"] * n for n in spec["launches"]):
+        raise RuntimeError(f"{label} launched (substep_forward, substep_vjp) "
+                           f"{[r['launches'] for r in records]} per epoch, "
+                           f"expected {spec['launches']}")
+    stats = {k: [v for _, _, v in trainer.scalars[k]]
+             for k in ("actor_loss", "value_loss", "loss", "a_loss",
+                       "c_loss", "kl", "lr", "alpha") if k in trainer.scalars}
+    if not stats or not all(math.isfinite(v) for vs in stats.values()
+                            for v in vs):
+        raise RuntimeError(f"{label} statistics {stats}")
+    if "lr" in stats and not 1e-6 <= stats["lr"][-1] <= 1e-2:
+        raise RuntimeError(f"{label} learning rate {stats['lr']}")
     if all(torch.equal(a, b) for a, b in zip(before,
-                                             trainer.actor.parameters())):
-        raise RuntimeError(f"{name} training left the actor unchanged")
-    epoch_s = [E * TRAIN_STEPS / fps for _, _, fps in trainer.scalars["fps"]]
-    rate = (f"{E * TRAIN_STEPS / statistics.mean(epoch_s[1:]):.1f} "
-            f"training env-steps/s after the first" if epochs > 1 else
-            f"{E * TRAIN_STEPS / epoch_s[0]:.1f} training env-steps/s "
-            f"(first epoch, builds included)")
-    net = trainer.actor.mu_net
-    phase("train", f"SHAC {name} E={E} x {TRAIN_STEPS} steps, {substeps} "
-          f"substeps, mm {mm}, actor {net.layer_dims} {net.activation}, "
-          f"{epochs} epochs in {train_s:.2f} s: epoch seconds "
-          + ", ".join(f"{t:.3f}" for t in epoch_s) + f" (first builds); "
-          f"{rate}; peak memory per epoch " + ", ".join(
-              f"{g:.3f}" for g in peaks_gb) + " GB; actor/value loss per "
-          f"epoch " + ", ".join(
-              f"{a:.4f}/{v:.4f}" for (_, _, a), (_, _, v) in zip(
-                  trainer.scalars["actor_loss"],
-                  trainer.scalars["value_loss"]))
-          + f"; substep_forward/substep_vjp launches {launches} | {card}")
-    return trainer, launches
+                                             trainer_params(trainer))):
+        raise RuntimeError(f"{label} training left the policy unchanged")
+    E_, H_ = trainer.num_envs, getattr(trainer, "steps_num", None) or \
+        trainer.steps_per_epoch
+    env = trainer.env
+    phase("train", f"{label} from examples/cfg/{spec['algo']}/{spec['cfg']}"
+          f" E={E_} x {H_} steps, {env.sim_substeps} substeps, mm "
+          f"{env.mm_caching_frequency}" + (f", config changed: "
+                                           f"{', '.join(changed)}"
+                                           if changed else "")
+          + f", {spec['epochs']} epochs (the first builds): per epoch "
+          + "; ".join(
+              f"{r['s']:.3f} s, {E_ * H_ / r['s']:.1f} env-steps/s, peak "
+              f"{r['gb']:.3f} GB, {r['syncs']} host syncs in train_epoch "
+              f"(+1 for its statistics), launches {r['launches']}"
+              for r in records) + "; " + ", ".join(
+              f"{k} {v[-1]:.5g}" for k, v in stats.items())
+          + f" | {card}")
+    with torch.no_grad():
+        hold_kernels(spec["model"], env, trainer.env_state.detach(), gen,
+                     f"{label} after training")
+    return trainer, records
 
 
-def split_epoch(trainer):
-    """One more epoch, phase by phase (the host waits for the device after
-    each): the window's forward, its backward + actor step, the critic.
-    Returns milliseconds of each."""
+def split(label, trainer):
+    """One more epoch of a trainer, phase by phase (the host waits for the
+    device after each): SHAC's window forward, its backward + actor step
+    and the critic; BPTT's window forward and its backward + optimizer
+    step; PPO's rollout and its update. Returns {phase: ms} and the host
+    syncs in the phases (the model's plan and kernel constants are built by
+    now: the first epoch's syncs upload them)."""
+    syncs = []
+
     def timed(fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn()
+        out, n = host_syncs(fn)
         torch.cuda.synchronize()
+        syncs.append(n)
         return out, (time.perf_counter() - t) * 1e3
 
-    (loss, outs), fwd_ms = timed(trainer.rollout)
-    _, bwd_ms = timed(lambda: trainer.actor_step(loss))
-    _, critic_ms = timed(lambda: trainer.critic_step(outs))
-    return fwd_ms, bwd_ms, critic_ms
+    algo = TRAINERS[label]["algo"]
+    if algo == "shac":
+        (loss, outs), fwd = timed(trainer.rollout)
+        _, bwd = timed(lambda: trainer.actor_step(loss))
+        _, critic = timed(lambda: trainer.critic_step(outs))
+        parts = {"window forward": fwd, "backward + actor step": bwd,
+                 "critic": critic}
+    elif algo == "bptt":
+        (loss, _), fwd = timed(trainer.rollout)
+
+        def backward():
+            trainer.actor_opt.zero_grad(set_to_none=True)
+            loss.backward()
+            trainer.apply_actor_grads()
+        _, bwd = timed(backward)
+        parts = {"window forward": fwd, "backward + Adam step": bwd}
+    else:
+        (outs, last), roll = timed(trainer.play_steps)
+        _, upd = timed(lambda: trainer.update(outs, last))
+        parts = {"rollout": roll, "GAE + minibatch updates": upd}
+    return parts, sum(syncs)
 
 
 def time_kernels(name, chk, card):
@@ -682,6 +881,7 @@ def main() -> int:
     from diffrl_tpu_torch.models import ActorStochasticMLP
     from diffrl_tpu_torch.sim import articulation_lb as lb
     from diffrl_tpu_torch.sim import substep_kernels as sk
+    from diffrl_tpu_torch.testing import check_repeatable
     from diffrl_tpu_torch.utils import RunningMeanStd
 
     dev = torch.device("cuda", 0)
@@ -747,9 +947,29 @@ def main() -> int:
     phase("kernel", f"prismatic+revolute without ground E={pe}: K1 vs plain "
           f"max err {err_p:.3e}")
 
+    # the plain path sums in a fixed order: two runs give the same bits
+    for name in SPLIT:
+        s1 = checks[name]["step_state"][0]
+        _, _, _, jat, mat, h, _, _ = checks[name]["fargs"]
+        t0 = time.perf_counter()
+        n = check_repeatable(menvs[name].model, s1.joint_q.T.contiguous(),
+                             s1.joint_qd.T.contiguous(), jat, mat, h, gen)
+        phase("repeat", f"{name} E={E}: the plain refresh substep, cached "
+              f"substep and both their VJPs run twice on the same inputs: "
+              f"{n} outputs bitwise equal ({time.perf_counter() - t0:.2f} "
+              f"s)")
+
     # 5. dflex golden fixtures through the kernel path
     for name in FIXTURES:
         check_fixture(name, menvs[name], dev)
+    for name in SCENES:
+        early, full, vel, n = scene_run(name, dev)
+        if name != "pendulum2_mm1" and n == 0:
+            raise RuntimeError(f"the {name} scene did not go through K1")
+        phase("fixture", f"{name} (tests/parity_scenes.py) at E=1: max|dq| "
+              f"{early:.3e} (30 steps), {full:.3e} (all), max|dqd| "
+              f"{vel:.3e}, tolerances {SCENE_TOL.get(name, (1e-5, 1e-4))}; "
+              f"substep_forward launches {n}")
 
     # 6. the rollout path: policy rollout through batched_eval
     env = menvs["Ant"]
@@ -786,13 +1006,17 @@ def main() -> int:
           f"env-steps/s, mean reward {mean_rew:.4f}, mean length "
           f"{mean_len:.2f}, substep_forward launches {launches} | {card}")
 
-    # 7. the training paths, then one more epoch of Ant, Humanoid and SNU
-    # Humanoid split into its phases
-    train_launches, splits = {}, {}
-    for name in MODELS:
-        trainer, train_launches[name] = train(name, dev, card)
-        if name in SPLIT:
-            splits[name] = split_epoch(trainer)
+    # 7. the training paths, each path's counts read alone, and one more
+    # epoch of some split into its phases
+    records, splits = {}, {}
+    for label, spec in TRAINERS.items():
+        trainer, records[label] = train(label, dev, card, gen)
+        if spec["split"]:
+            splits[label], syncs = split(label, trainer)
+            phase("timing", f"one more {label} epoch, host waiting after "
+                  f"each phase: " + ", ".join(
+                      f"{k} {v:.1f} ms" for k, v in splits[label].items())
+                  + f"; {syncs} host syncs in it | {card}")
         del trainer
         torch.cuda.empty_cache()
 
@@ -816,8 +1040,9 @@ def main() -> int:
           f"{MM - 1} kernel launches + obs/reward/reset; training env step "
           f"(forward and backward of simulate) {g_call:.3f} ms per call | "
           f"{card}")
-    for name, (fwd_ms, bwd_ms, critic_ms) in splits.items():
+    for name in SPLIT:
         spec = MODELS[name]
+        fwd_ms, bwd_ms, critic_ms = splits[f"SHAC {name}"].values()
         blocks = TRAIN_STEPS * spec["substeps"] // spec["mm"]
         n_win = blocks * (spec["mm"] - 1)
         (r_call, rp_call), (f_call, v_call) = refresh_call[name], k_call[name]
@@ -858,6 +1083,9 @@ def main() -> int:
           f"steps | {card}")
     phase("total", f"{time.perf_counter() - t_start:.1f} s")
 
+    # each path's launches over its whole run
+    runs = {label: [sum(r["launches"][i] for r in recs) for i in (0, 1)]
+            for label, recs in records.items()}
     kernels = []
     for name in MODELS:
         for i, kname in enumerate(KERNELS):
@@ -870,7 +1098,11 @@ def main() -> int:
                 "replaces": "diffrl_tpu/sim/pallas_substep.py:"
                             + ("243" if kname == "substep_forward"
                                else "298"),
-                "launches": train_launches[name][i],
+                "launches": runs[f"SHAC {name}"][i],
+                "launches_by_path": {
+                    spec["algo"]: runs[label][i]
+                    for label, spec in TRAINERS.items()
+                    if spec["model"] == name},
                 "max_abs_err": checks[name]["err_fwd" if i == 0
                                             else "err_vjp"],
                 **times[name][kname],

@@ -34,6 +34,7 @@ from .. import envs as env_registry
 from ..models import ActorDeterministicMLP, ActorStochasticMLP, CriticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
 from ..utils.tb import TBWriter
+from .trainer import Trainer
 
 
 def linear_schedule(init: float, end: float, horizon: int, count: int):
@@ -48,7 +49,35 @@ def _global_norm(grads):
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
-class SHAC:
+def clip_and_step(optimizer, params: Sequence[torch.Tensor], lr: float,
+                  grad_norm: float, truncate: bool = True):
+    """nan_to_num the gradients in ``params``' .grad, scale them by
+    min(1, grad_norm / (norm + 1e-12)) when ``truncate`` (the JAX
+    trainers' clip, not clip_grad_norm_'s 1e-6) and take one step of
+    ``optimizer`` at ``lr``. A parameter the loss did not reach gets a zero
+    gradient, as under jax.grad, so Adam still advances its moments.
+    Returns the norms before and after."""
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        torch.nan_to_num(p.grad, nan=0.0, posinf=0.0, neginf=0.0,
+                         out=p.grad)
+        grads.append(p.grad)
+    gnorm_before = _global_norm(grads)
+    if truncate:
+        scale = torch.clamp(grad_norm / (gnorm_before + 1e-12), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+    gnorm_after = _global_norm(grads)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return gnorm_before, gnorm_after
+
+
+class SHAC(Trainer):
     def __init__(self, cfg: Dict[str, Any], device=None):
         params = cfg["params"]
         general = params.get("general", {})
@@ -57,7 +86,7 @@ class SHAC:
         self.device = default_device(device)
         if config.get("multi_gpu", False):
             raise NotImplementedError(
-                "multi_gpu: the port trains on one card (ROADMAP A12)")
+                "multi_gpu: the port trains on one card (ROADMAP A7)")
         if diff_env.get("sim_backward") not in (None, "auto", "lb"):
             raise NotImplementedError(
                 f"sim_backward={diff_env['sim_backward']!r}: the port has "
@@ -266,29 +295,8 @@ class SHAC:
 
     def _clip_and_step(self, optimizer, params: Sequence[torch.Tensor],
                        lr: float):
-        """nan_to_num the gradients, clip them to grad_norm (when
-        truncate_grads) and take one Adam step at ``lr``. A parameter the
-        loss did not reach gets a zero gradient, as under jax.grad, so Adam
-        still advances its moments. Returns the norms before and after."""
-        grads = []
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            torch.nan_to_num(p.grad, nan=0.0, posinf=0.0, neginf=0.0,
-                             out=p.grad)
-            grads.append(p.grad)
-        gnorm_before = _global_norm(grads)
-        if self.truncate_grad:
-            scale = torch.clamp(self.grad_norm / (gnorm_before + 1e-12),
-                                max=1.0)
-            for g in grads:
-                g.mul_(scale)
-        gnorm_after = _global_norm(grads)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return gnorm_before, gnorm_after
+        return clip_and_step(optimizer, params, lr, self.grad_norm,
+                             self.truncate_grad)
 
     def actor_step(self, loss):
         """Backward through the window, then one clipped Adam step."""
@@ -517,12 +525,6 @@ class SHAC:
                    f"{mean_disc}, mean episode length = {mean_len}")
         return mean_loss, mean_len
 
-    def play(self, cfg):
-        """Loads ``cfg``'s general checkpoint and runs the player's
-        games_num episodes."""
-        self.load(cfg["params"]["general"]["checkpoint"])
-        return self.run(cfg["params"]["config"].get("player", {}).get(
-            "games_num", 1))
 
     # ---------------------------------------------------------- checkpoints
 
@@ -547,10 +549,6 @@ class SHAC:
         }
         return copy.deepcopy(state) if copy_state else state
 
-    def save(self, filename=None, snapshot=None):
-        filename = filename or "best_policy"
-        torch.save(snapshot if snapshot is not None else self._snapshot(),
-                   os.path.join(self.log_dir, f"{filename}.pt"))
 
     def load(self, path):
         state = torch.load(path, map_location=self.device)
@@ -567,18 +565,3 @@ class SHAC:
         self.critic_updates = state["critic_updates"]
         self.iter_count = state.get("iter_count", 0)
         self.step_count = state.get("step_count", 0)
-
-    # -------------------------------------------------------------- logging
-
-    def _log_scalars(self, time_elapse=None, **kwargs):
-        for k, v in kwargs.items():
-            self.scalars.setdefault(k, []).append(
-                (self.iter_count, self.step_count, float(v)))
-            if np.isfinite(float(v)):
-                self.writer.log(k, float(v), self.iter_count, self.step_count,
-                                time_elapse)
-        if self.iter_count % 50 == 0 or self.iter_count == self.max_epochs:
-            np.savez(
-                os.path.join(self.log_dir, "scalars.npz"),
-                **{k: np.array(v) for k, v in self.scalars.items()},
-            )

@@ -1,1 +1,2 @@
-from .mlp import MLP, ActorDeterministicMLP, ActorStochasticMLP, CriticMLP
+from .mlp import (MLP, ActorCriticPPO, ActorDeterministicMLP,
+                  ActorStochasticMLP, CriticMLP, DoubleCriticMLP, SACActor)

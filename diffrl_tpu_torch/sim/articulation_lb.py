@@ -13,6 +13,14 @@ appended identity row for roots), force accumulation is one subtree-mask
 contraction, and canonical coord/dof order is restored by one permutation
 gather at the stage boundary.
 
+Every sum over rows that share a destination runs in a fixed order, so the
+plain version gives the same bits run after run on CUDA as on the CPU
+(``_Fan``): the contact wrenches and the muscle segment ends are added per
+link left to right through padded tables, in the order of the sequential
+``index_add_`` the kernels follow, and so are the cotangents of every
+gather whose indices repeat (a parent's children, a link's dofs, contacts
+and segment ends), which autograd would otherwise scatter with atomics.
+
 ``substep_lb`` is the plain PyTorch version of the cached-substep kernel
 and ``substep_vjp_lb`` that of its adjoint kernel (sim/substep_kernels.py);
 ``simulate_batched_lb`` sends its cached substeps, forward and reverse, to
@@ -220,6 +228,73 @@ def _solve_frozen_inv(H, Hinv, b):
     return _SolveFrozenInv.apply(H, Hinv, b)
 
 
+@dataclass(frozen=True, eq=False)
+class _Fan:
+    """A gather ``x[idx]`` whose indices repeat, and its adjoint: the sum
+    of rows back into their sources. ``table[r]`` lists, in increasing
+    order, the positions j with idx[j] == r, padded with len(idx) (a zero
+    row), so that row r's sum is taken left to right whatever the device."""
+
+    idx: torch.Tensor       # [N] source row of each gathered row
+    table: torch.Tensor     # [R, W] positions per source row, padded with N
+
+
+def _fan(idx, rows: int, device) -> _Fan:
+    idx = np.asarray(idx, np.int64)
+    lists = [np.nonzero(idx == r)[0] for r in range(rows)]
+    width = max([1] + [len(x) for x in lists])
+    table = np.full((rows, width), len(idx), np.int64)
+    for r, x in enumerate(lists):
+        table[r, :len(x)] = x
+    return _Fan(torch.as_tensor(idx, device=device),
+                torch.as_tensor(table, device=device))
+
+
+def _fixed_sum(x, table):
+    """out[r] = x[table[r, 0]] + x[table[r, 1]] + ..., left to right, the
+    pad position reading a zero row."""
+    pad = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+    rows = pad[table]
+    out = rows[:, 0]
+    for k in range(1, table.shape[1]):
+        out = out + rows[:, k]
+    return out
+
+
+class _FanGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fan):
+        ctx.fan = fan
+        return x.index_select(0, fan.idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _FanSum.apply(g, ctx.fan), None
+
+
+class _FanSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fan):
+        ctx.fan = fan
+        return _fixed_sum(x, fan.table)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _FanGather.apply(g, ctx.fan), None
+
+
+def _gather(x, fan: _Fan):
+    """x[fan.idx] along the first axis; its cotangent is summed per source
+    row in a fixed order."""
+    return _FanGather.apply(x, fan)
+
+
+def _scatter_sum(x, fan: _Fan):
+    """[R, ...] sums of the rows of x per destination fan.idx, each taken
+    left to right in row order (the sequential index_add_'s order)."""
+    return _FanSum.apply(x, fan)
+
+
 # --------------------------------------------------------------------------
 # topology plan: level-major link regrouping, all static index/const tables
 # --------------------------------------------------------------------------
@@ -277,20 +352,22 @@ class _Plan:
     gravity: torch.Tensor                 # [1, 3, 1]
     ground_normal: torch.Tensor           # [1, 3, 1], +y
     subtree_t: torch.Tensor
-    parent_row_t: torch.Tensor
-    level_parent_t: Tuple[torch.Tensor, ...]
+    parent_fan: _Fan                      # parent rows of [L + 1] rows
+    level_parent_fan: Tuple[_Fan, ...]    # per level, into the rows above
     inv_coord_perm_t: torch.Tensor
     inv_dof_perm_t: torch.Tensor
-    dof_row_t: torch.Tensor
+    dof_fan: _Fan                         # owning row of each chunk-dof
     anc_pair_t: torch.Tensor              # [D, D, 1] bool
     armature: torch.Tensor                # [D, 1] canonical order
     contact_rows_t: torch.Tensor
+    contact_fan: _Fan
     contact_point: torch.Tensor           # [K, 3, 1]
     contact_dist: torch.Tensor            # [K, 1, 1]
     contact_mat: torch.Tensor             # [4, K, 1, 1] (ke, kd, kf, mu)
-    seg_row0_t: torch.Tensor
-    seg_row1_t: torch.Tensor
-    seg_m_t: torch.Tensor
+    seg_row0_fan: _Fan
+    seg_row1_fan: _Fan
+    seg_end_fan: _Fan                     # [row0 ends; row1 ends] -> link
+    seg_m_fan: _Fan
     seg_r0: torch.Tensor                  # [S, 3, 1]
     seg_r1: torch.Tensor
 
@@ -480,15 +557,17 @@ def _build_plan(model: Model, device: torch.device,
         gravity=f32(np.asarray(model.gravity, np.float32).reshape(1, 3, 1)),
         ground_normal=f32(np.array([0.0, 1.0, 0.0]).reshape(1, 3, 1)),
         subtree_t=f32(anc),
-        parent_row_t=i64(parent_row),
-        level_parent_t=tuple(i64(parent_row[s:e]) for (s, e) in levels),
+        parent_fan=_fan(parent_row, L + 1, device),
+        level_parent_fan=tuple(_fan(parent_row[s:e], s, device)
+                               for (s, e) in levels),
         inv_coord_perm_t=i64(inv_coord_perm),
         inv_dof_perm_t=i64(inv_dof_perm),
-        dof_row_t=i64(dof_row),
+        dof_fan=_fan(dof_row, L, device),
         anc_pair_t=torch.as_tensor(anc_pair[:, :, None], device=device),
         armature=f32(np.asarray(model.joint_armature, np.float32)
                      .reshape(-1, 1)),
         contact_rows_t=i64(contact_rows),
+        contact_fan=_fan(contact_rows, L, device),
         contact_point=f32(np.asarray(model.contact_point, np.float32)
                           .reshape(-1, 3, 1) if has_contacts
                           else np.zeros((0, 3, 1), np.float32)),
@@ -496,9 +575,10 @@ def _build_plan(model: Model, device: torch.device,
                          .reshape(-1, 1, 1) if has_contacts
                          else np.zeros((0, 1, 1), np.float32)),
         contact_mat=f32(cmat.T.reshape(4, -1, 1, 1)),
-        seg_row0_t=i64(seg_row0),
-        seg_row1_t=i64(seg_row1),
-        seg_m_t=i64(seg_m_np),
+        seg_row0_fan=_fan(seg_row0, L, device),
+        seg_row1_fan=_fan(seg_row1, L, device),
+        seg_end_fan=_fan(np.concatenate([seg_row0, seg_row1]), L, device),
+        seg_m_fan=_fan(seg_m_np, M, device),
         seg_r0=f32(seg_r0),
         seg_r1=f32(seg_r1),
     )
@@ -545,11 +625,12 @@ def _fk(plan: _Plan, q):
     """Level-synchronous FK: X_sc, X_sm [L, 7, E] in proc order."""
     X_local = _tmul(plan.X_pj, _joint_transforms(plan, q))   # [L, 7, E]
     acc = None
-    for (s, e), pr in zip(plan.levels, plan.level_parent_t):
+    for (s, e), pr in zip(plan.levels, plan.level_parent_fan):
         if s == 0:
             acc = X_local[s:e]        # roots: parent is the space frame
         else:
-            acc = torch.cat([acc, _tmul(acc[pr], X_local[s:e])], dim=0)
+            acc = torch.cat([acc, _tmul(_gather(acc, pr), X_local[s:e])],
+                            dim=0)
     X_sc = acc if acc is not None else q.new_zeros((0, 7, q.shape[-1]))
     X_sm = _tmul(X_sc, plan.X_cm)
     return X_sc, X_sm
@@ -559,7 +640,7 @@ def _motion_subspaces(plan: _Plan, q, X_sc):
     """Per-group S chunks ([n, cd, 6, E]) and the joint frames X_sj."""
     E = q.shape[-1]
     aug = torch.cat([X_sc, _identity_rows(1, E, q)], dim=0)
-    X_sj = _tmul(aug[plan.parent_row_t], plan.X_pj)
+    X_sj = _tmul(_gather(aug, plan.parent_fan), plan.X_pj)
 
     S_chunks = []
     for g in plan.groups:
@@ -610,14 +691,14 @@ def _id(plan: _Plan, q, qd, X_sc, X_sm):
     v_j = torch.cat(vj_parts, dim=0)                             # [L, 6, E]
 
     v_acc = a_acc = None
-    for (s, e), pr in zip(plan.levels, plan.level_parent_t):
+    for (s, e), pr in zip(plan.levels, plan.level_parent_fan):
         vj_lvl = v_j[s:e]
         if s == 0:
             v_acc = vj_lvl
             a_acc = _scross(v_acc, vj_lvl)
         else:
-            v_lvl = v_acc[pr] + vj_lvl
-            a_lvl = a_acc[pr] + _scross(v_lvl, vj_lvl)
+            v_lvl = _gather(v_acc, pr) + vj_lvl
+            a_lvl = _gather(a_acc, pr) + _scross(v_lvl, vj_lvl)
             v_acc = torch.cat([v_acc, v_lvl], dim=0)
             a_acc = torch.cat([a_acc, a_lvl], dim=0)
 
@@ -632,22 +713,33 @@ def _id(plan: _Plan, q, qd, X_sc, X_sm):
     return S_chunks, v_acc, body_f
 
 
+def _contact_kinematics(plan: _Plan, X_sc, v_s):
+    """What the ground contacts and their selects are made of: each
+    contact's link frame X [K, 7, E], the link's angular and linear velocity
+    w, v, the contact's world point p and its velocity dpdt = v + w x p
+    ([K, 3, E] each)."""
+    X = _gather(X_sc, plan.contact_fan)                          # [K, 7, E]
+    v6 = _gather(v_s, plan.contact_fan)
+    p = _tpoint(X, plan.contact_point) - plan.ground_normal * \
+        plan.contact_dist
+    w, v = v6[:, 0:3, :], v6[:, 3:6, :]
+    return X, w, v, p, v + _cross(w, p)
+
+
+def _segment_ends(plan: _Plan, X_sc):
+    """The world points [S, 3, E] at both ends of every muscle segment."""
+    return (_tpoint(_gather(X_sc, plan.seg_row0_fan), plan.seg_r0),
+            _tpoint(_gather(X_sc, plan.seg_row1_fan), plan.seg_r1))
+
+
 def _contacts(plan: _Plan, X_sc, v_s):
     """Ground contacts -> per-link wrenches [L, 6, E] in proc order."""
-    L, E = X_sc.shape[0], X_sc.shape[-1]
-    out = X_sc.new_zeros((L, 6, E))
     if len(plan.contact_rows) == 0:
-        return out
-    X = X_sc[plan.contact_rows_t]                                # [K, 7, E]
-    v6 = v_s[plan.contact_rows_t]
+        return X_sc.new_zeros((X_sc.shape[0], 6, X_sc.shape[-1]))
+    _, _, _, p, dpdt = _contact_kinematics(plan, X_sc, v_s)
     ke, kd, kf, mu = plan.contact_mat.unbind(0)
 
     n_c = plan.ground_normal
-    p = _tpoint(X, plan.contact_point) - n_c * plan.contact_dist
-    w = v6[:, 0:3, :]
-    v = v6[:, 3:6, :]
-    dpdt = v + _cross(w, p)
-
     c = p[:, 1:2, :]                                             # [K, 1, E]
     vn = dpdt[:, 1:2, :]
     vt = dpdt - n_c * vn
@@ -669,23 +761,109 @@ def _contacts(plan: _Plan, X_sc, v_s):
     t_total = _cross(p, f_total)
 
     wrench = torch.cat([t_total, f_total], dim=-2)               # [K, 6, E]
-    return out.index_add_(0, plan.contact_rows_t, wrench)
+    return _scatter_sum(wrench, plan.contact_fan)
 
 
 def _muscles(plan: _Plan, X_sc, muscle_act):
     """MTU muscle wrenches -> [L, 6, E] proc order. muscle_act: [M, E]."""
-    L, E = X_sc.shape[0], X_sc.shape[-1]
-    out = X_sc.new_zeros((L, 6, E))
     if len(plan.seg_row0) == 0:
-        return out
-    act = muscle_act[plan.seg_m_t][:, None, :]                   # [S, 1, E]
-    pos0 = _tpoint(X_sc[plan.seg_row0_t], plan.seg_r0)
-    pos1 = _tpoint(X_sc[plan.seg_row1_t], plan.seg_r1)
+        return X_sc.new_zeros((X_sc.shape[0], 6, X_sc.shape[-1]))
+    act = _gather(muscle_act, plan.seg_m_fan)[:, None, :]        # [S, 1, E]
+    pos0, pos1 = _segment_ends(plan, X_sc)
     f = _safe_normalize(pos1 - pos0) * act
     w0 = torch.cat([_cross(pos0, f), f], dim=-2)
     w1 = torch.cat([_cross(pos1, f), f], dim=-2)
-    out.index_add_(0, plan.seg_row0_t, -w0)
-    return out.index_add_(0, plan.seg_row1_t, w1)
+    # per link: the -w0 of its first ends, then the w1 of its second ends
+    return _scatter_sum(torch.cat([-w0, w1]), plan.seg_end_fan)
+
+
+# a select counts as at its boundary when its argument lies within this
+# many float32 units of it (select_margins' units): the next power of two
+# above the largest float32 rounding of a select's argument that the plain
+# path made at chip_smoke.py's checked states of every model on an NVIDIA
+# H100 (194 units, SNU Humanoid's tangential guard; select_rounding). The
+# kernels' own rounding cannot be read (their arguments stay in registers),
+# and no kernel has taken a select's other side at those states, so no
+# flipped env measures it
+SELECT_ULPS = 256.0
+# the selects of one substep whose side can flip the answer's derivative
+SELECTS = ("contact depth c < 0", "normal speed min(vn, 0)",
+           "tangential guard |vt|^2 > 1e-12",
+           "friction cone min(kf |vt|, -mu c ke)",
+           "muscle segment guard |d|^2 > 1e-12")
+_ULP = 2.0 ** -23
+
+
+def _select_terms(plan: _Plan, q, qd):
+    """For each name of SELECTS that the model has: (its argument less its
+    boundary, the size of the terms the argument is summed from, whether
+    the instance is in or near contact), [N, E] each over its instances, in
+    q's dtype. The scale is a contact's point and link origin for its
+    depth, v + w x p for its speeds, both segment ends for a segment."""
+    X_sc, X_sm = _fk(plan, q)
+    out = {}
+    if len(plan.contact_rows):
+        _, v_s, _ = _id(plan, q, qd, X_sc, X_sm)
+        X, w, v, p, dpdt = _contact_kinematics(plan, X_sc, v_s)
+        ke, kd, kf, mu = (m[:, 0] for m in plan.contact_mat.unbind(0))
+        c, vn = p[:, 1], dpdt[:, 1]
+        vt_len = torch.linalg.vector_norm(
+            dpdt - plan.ground_normal * dpdt[:, 1:2], dim=1)
+        s_c = (X[:, 0:3].abs().amax(1) + plan.contact_point.abs().amax(1)
+               + plan.contact_dist[:, 0].abs())
+        s_v = v.abs().amax(1) + w.abs().amax(1) * p.abs().amax(1)
+        live = (c < 0.0) | (c.abs() <= SELECT_ULPS * _ULP * s_c)
+        out[SELECTS[0]] = (c, s_c, None)
+        out[SELECTS[1]] = (vn, s_v, live)
+        out[SELECTS[2]] = (vt_len - 1e-6, s_v, live)
+        out[SELECTS[3]] = (kf * vt_len + mu * c * ke,
+                           kf * s_v + mu * ke * s_c, live)
+    if len(plan.seg_row0):
+        pos0, pos1 = _segment_ends(plan, X_sc)
+        out[SELECTS[4]] = (torch.linalg.vector_norm(pos1 - pos0, dim=1)
+                           - 1e-6,
+                           pos0.abs().amax(1) + pos1.abs().amax(1), None)
+    return out
+
+
+def select_margins(model: Model, q, qd):
+    """How near each env's selects lie to their boundaries, in float32
+    rounding units: for each name of ``SELECTS``, a float64 [E] tensor of
+    the least |argument - boundary| / (2^-23 scale) over its instances
+    (contacts, muscle segments; ``_select_terms``), the arguments computed
+    in float64 at the env-minor state (q [C, E], qd [D, E]). A float32 path
+    takes a select's other side only where its rounding reaches the
+    boundary, so only a small margin lets it. The speed and friction
+    selects count for contacts in or near contact (depth below 0 or within
+    SELECT_ULPS units of it); an env without instances gets inf."""
+    plan = _plan_for(model, q.device, torch.float64)
+    inf = torch.full((q.shape[-1],), float("inf"), dtype=torch.float64,
+                     device=q.device)
+    out = dict.fromkeys(SELECTS, inf)
+    tiny = torch.finfo(torch.float64).tiny
+    for name, (arg, scale, live) in _select_terms(
+            plan, q.double(), qd.double()).items():
+        units = arg.abs() / (_ULP * scale + tiny)
+        if live is not None:
+            units = torch.where(live, units, torch.inf)
+        out[name] = units.amin(0)
+    return out
+
+
+def select_rounding(model: Model, q, qd):
+    """The float32 rounding of each select's argument on the plain path, in
+    select_margins' units: for each name of ``SELECTS`` that the model has,
+    the largest |argument in float32 - argument in float64| / (2^-23 scale)
+    over all its instances and envs at the float32 state (q, qd): the
+    measurement SELECT_ULPS is set from."""
+    p32 = _plan_for(model, q.device, torch.float32)
+    p64 = _plan_for(model, q.device, torch.float64)
+    t32 = _select_terms(p32, q.float(), qd.float())
+    tiny = torch.finfo(torch.float64).tiny
+    return {name: float(((t32[name][0].double() - arg).abs()
+                         / (_ULP * scale + tiny)).max())
+            for name, (arg, scale, _) in _select_terms(
+                p64, q.double(), qd.double()).items()}
 
 
 def _tau(plan: _Plan, q, qd, joint_act, S_chunks, body_f):
@@ -820,7 +998,7 @@ def _mass_matrix_em(plan: _Plan, X_sm, S_chunks):
     # S in chunk-dof order [D, 6, E]; U_d = I^C_{link(d)} S_d
     S_all = torch.cat(
         [S.reshape(-1, 6, E) for S in S_chunks if S.shape[1]], dim=0)
-    U = torch.einsum("dkE,dkrE->drE", S_all, Ic[plan.dof_row_t])
+    U = torch.einsum("dkE,dkrE->drE", S_all, _gather(Ic, plan.dof_fan))
 
     # A[e, d] = S_e . U_d, valid when link(e) is ancestor-or-self of
     # link(d); the mirrored triangle comes from A^T (I^C symmetric)

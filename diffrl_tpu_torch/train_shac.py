@@ -28,16 +28,21 @@ import yaml
 
 from .algorithms import SHAC
 
-_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "examples", "cfg", "shac", "ant.yaml")
+_CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "examples", "cfg")
 
 
-def get_args(argv: Optional[Sequence[str]] = None):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--cfg", type=str, default=_CFG)
+def parse_args(doc: str, cfg: str, logdir: str,
+               argv: Optional[Sequence[str]] = None):
+    """The training command lines' arguments (this one's, train_bptt's and
+    train_rl's): ``cfg`` (under examples/cfg/) and ``logdir`` are the
+    defaults of --cfg and --logdir."""
+    parser = argparse.ArgumentParser(description=doc.splitlines()[0])
+    parser.add_argument("--cfg", type=str, default=os.path.join(_CFG_DIR,
+                                                                cfg))
     parser.add_argument("--play", default=False, action="store_true")
     parser.add_argument("--checkpoint", type=str, default="Base")
-    parser.add_argument("--logdir", type=str, default="logs/tmp/shac/")
+    parser.add_argument("--logdir", type=str, default=logdir)
     parser.add_argument("--save-interval", type=int, default=None)
     parser.add_argument("--no-time-stamp", default=False,
                         action="store_true")
@@ -46,6 +51,11 @@ def get_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--num-envs", type=int, default=None)
     parser.add_argument("--max-epochs", type=int, default=None)
     return parser.parse_args(argv)
+
+
+def get_args(argv: Optional[Sequence[str]] = None):
+    return parse_args(__doc__, os.path.join("shac", "ant.yaml"),
+                      "logs/tmp/shac/", argv)
 
 
 def build_config(args):
@@ -61,7 +71,10 @@ def build_config(args):
     if args.max_epochs is not None:
         config["max_epochs"] = args.max_epochs
     if args.save_interval is not None:
-        config["save_interval"] = args.save_interval
+        # SHAC and BPTT read save_interval, PPO and SAC save_frequency
+        key = "save_frequency" if "save_frequency" in config \
+            else "save_interval"
+        config[key] = args.save_interval
     if not args.no_time_stamp:
         args.logdir = os.path.join(
             args.logdir, datetime.datetime.now().strftime("%y-%m-%d-%H-%M-%S"))
@@ -69,20 +82,34 @@ def build_config(args):
     return cfg
 
 
-def main(argv: Optional[Sequence[str]] = None):
-    args = get_args(argv)
+def prepare(args):
+    """The arguments' config (build_config), with the host's generators
+    seeded and, for training, the config written next to the logs."""
     cfg = build_config(args)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    trainer = SHAC(cfg, device=args.device)
+    if not args.play:
+        os.makedirs(args.logdir, exist_ok=True)
+        with open(os.path.join(args.logdir, "cfg.yaml"), "w") as f:
+            yaml.dump(cfg, f)
+    return cfg
+
+
+def run(trainer_cls, args):
+    """Builds ``trainer_cls`` from the arguments' config on --device, and
+    plays its checkpoint or trains it. Returns the trainer, or what play
+    returns."""
+    cfg = prepare(args)
+    trainer = trainer_cls(cfg, device=args.device)
     if args.play:
         return trainer.play(cfg)
-    os.makedirs(args.logdir, exist_ok=True)
-    with open(os.path.join(args.logdir, "cfg.yaml"), "w") as f:
-        yaml.dump(cfg, f)
     trainer.train()
     return trainer
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    return run(SHAC, get_args(argv))
 
 
 if __name__ == "__main__":

@@ -6,9 +6,15 @@ LayerNorm entries on hidden layers only), a stochastic actor is
 ``{"mlp": [...], "logstd" [A]}`` and a RunningMeanStd holds ``mean``,
 ``var`` and ``count``. Adam's state (optax ``ScaleByAdamState``) holds
 ``mu`` and ``nu`` pytrees shaped like the parameters and a ``count``. The
-converters take those pytrees with numpy leaves (``jax.device_get`` of the
-parameters, or the arrays read out of a checkpoint by the caller) and
-never unpickle JAX classes themselves.
+model-free networks are ``{"trunk": [...], "mu": [...], "value": [...],
+"logstd"}`` (PPO's ActorCriticPPO), ``{"q1": [...], "q2": [...]}`` (SAC's
+DoubleCriticMLP) and ``{"mlp": [...]}`` (SACActor); SAC's temperature is a
+scalar ``log_alpha`` with an Adam state of its own, and PPO's optimizer is
+optax.scale_by_adam alone (torch's Adam at the carried learning rate). The
+converters take
+those pytrees with numpy leaves (``jax.device_get`` of the parameters, or
+the arrays read out of a checkpoint by the caller) and never unpickle JAX
+classes themselves.
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.mlp import MLP, ActorDeterministicMLP, ActorStochasticMLP, \
-    CriticMLP
+from ..models.mlp import (MLP, ActorCriticPPO, ActorDeterministicMLP,
+                          ActorStochasticMLP, CriticMLP, DoubleCriticMLP,
+                          SACActor)
 from .running_mean_std import RunningMeanStd
 
 
@@ -49,13 +56,25 @@ def _mlp_pairs(module: MLP, layers: List[Mapping[str, Any]]
             yield f"layer {i} ln_bias", module.norms[i].bias, layer["ln_bias"]
 
 
-def param_pairs(module: nn.Module, params: Mapping[str, Any]
-                ) -> List[Tuple[str, torch.Tensor, Any]]:
-    """(name, parameter of ``module``, leaf of ``params``) for an actor or
-    critic module and a pytree shaped like its JAX parameters."""
-    net = module.mu_net if hasattr(module, "mu_net") else module.critic_net
-    pairs = list(_mlp_pairs(net, params["mlp"]))
-    if isinstance(module, ActorStochasticMLP):
+def param_pairs(module, params) -> List[Tuple[str, torch.Tensor, Any]]:
+    """(name, parameter of ``module``, leaf of ``params``) for a network of
+    models.mlp and a pytree shaped like its JAX parameters; ``module`` may
+    also be a lone parameter (SAC's log_alpha) and ``params`` its leaf."""
+    if isinstance(module, torch.Tensor):
+        return [("tensor", module, params)]
+    if isinstance(module, ActorCriticPPO):
+        parts = (("trunk", module.trunk), ("mu", module.mu),
+                 ("value", module.value))
+    elif isinstance(module, DoubleCriticMLP):
+        parts = (("q1", module.q1), ("q2", module.q2))
+    elif isinstance(module, SACActor):
+        parts = (("mlp", module.net),)
+    else:
+        parts = (("mlp", module.mu_net if hasattr(module, "mu_net")
+                  else module.critic_net),)
+    pairs = [(f"{key} {name}", dst, src) for key, net in parts
+             for name, dst, src in _mlp_pairs(net, params[key])]
+    if isinstance(module, (ActorStochasticMLP, ActorCriticPPO)):
         pairs.append(("logstd", module.logstd, params["logstd"]))
     return pairs
 
@@ -69,11 +88,15 @@ def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
 
 
 @torch.no_grad()
-def load_adam_state(optimizer: torch.optim.Adam, module: nn.Module, mu,
-                    nu, count) -> torch.optim.Adam:
-    """Set ``optimizer``'s state for ``module``'s parameters from optax's
-    Adam state: exp_avg = mu, exp_avg_sq = nu, step = count (optax and
-    torch apply the same bias corrections to the same moments)."""
+def load_adam_state(optimizer: torch.optim.Adam, module, mu, nu, count
+                    ) -> torch.optim.Adam:
+    """Set ``optimizer``'s state for ``module``'s parameters (or for a lone
+    parameter) from optax's Adam state: exp_avg = mu, exp_avg_sq = nu, step
+    = count (optax and torch apply the same bias corrections to the same
+    moments). A fused or capturable Adam keeps its step on the parameter's
+    device, as torch does."""
+    group = optimizer.param_groups[0]
+    on_device = group.get("fused") or group.get("capturable")
     for (name, p, m), (_, _, v) in zip(param_pairs(module, mu),
                                        param_pairs(module, nu)):
         exp_avg, exp_avg_sq = torch.empty_like(p), torch.empty_like(p)
@@ -81,7 +104,8 @@ def load_adam_state(optimizer: torch.optim.Adam, module: nn.Module, mu,
         _copy(exp_avg_sq, v, f"{name} nu")
         optimizer.state[p] = {
             "step": torch.tensor(float(np.asarray(count)),
-                                 dtype=torch.float32),
+                                 dtype=torch.float32,
+                                 device=p.device if on_device else None),
             "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
     return optimizer
 

@@ -54,5 +54,7 @@ class RunningMeanStd(nn.Module):
         out.load_state_dict(self.state_dict())
         return out
 
-    def normalize(self, x):
+    def normalize(self, x, un_norm: bool = False):
+        if un_norm:
+            return x * torch.sqrt(self.var + 1e-5) + self.mean
         return (x - self.mean) / torch.sqrt(self.var + 1e-5)

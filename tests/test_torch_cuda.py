@@ -12,9 +12,12 @@ rtol 2e-4 and atol 1e-5 in units of each env's largest cotangent entry
 (check_vjp), and entry by entry no further from the float64 plain version
 than twice the float32 plain version's error plus rtol and 8 times the
 plain version's largest error in that env (check_against_f64), an env
-that meets this only against the float64 answer at a state within float32
-rounding of the inputs being at a select's boundary, counted apart
-(near_f64; the counts are printed).
+that breaks this while one of its named selects lies within
+testing.SELECT_ULPS float32 units of its boundary being at that boundary,
+counted apart and printed with the select and its margin
+(articulation_lb.select_margins). A failing kernel check leaves a witness
+of the failing env under build/witness/ and names it
+(tools/replay_witness.py replays it on the CPU).
 
 Both kernels are checked at E = 4096 (the main path), 1000 (a partial last
 block) and 1 (one env in a block of 16); two launches on the same inputs
@@ -27,9 +30,17 @@ against float64 by the rules of diffrl_tpu_torch/testing.py (check_kernel;
 on Humanoid with its floor: a q', qd' or dH entry there inherits the
 float32 error of a 27-term sum whose terms are about 100 times it), with
 the occupancy and spill checks.
+
+The plain path (refresh, cached substep and both VJPs) gives the same bits
+twice on the same inputs at E = 4096 on Ant, Humanoid and SNU Humanoid
+(testing.check_repeatable); a kernel check that fails on an injected off
+entry leaves a witness that replays; and a PPO and a SAC epoch on Ant
+launch the forward kernel once per cached substep and the adjoint kernel
+never.
 """
 
-import functools
+import os
+import sys
 
 import pytest
 import torch
@@ -37,8 +48,10 @@ import torch
 import diffrl_tpu_torch.envs as envs
 from diffrl_tpu_torch.sim import articulation_lb as lb
 from diffrl_tpu_torch.sim import substep_kernels as sk
+from diffrl_tpu_torch import testing
 from diffrl_tpu_torch.testing import (check_against_f64, check_kernel,
-                                     check_vjp, f64_floor, near_f64)
+                                     check_repeatable, check_vjp, f64_floor)
+from diffrl_tpu_torch.testing import substep_witness as _witness
 
 pytestmark = pytest.mark.cuda
 
@@ -122,18 +135,19 @@ def test_vjp_kernel_matches_plain(cuda, E):
     want = lb.substep_vjp_lb(*args)
     exact = lb.substep_vjp_lb(env.model, *(t.double() for t in args[1:4]),
                               None, h, *(t.double() for t in args[6:]))
-    near = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
-        env.model, q_, qd_, ja.double(), None, h,
-        *(t.double() for t in args[6:])), q1, qd1)
+    margins = lb.select_margins(env.model, q1, qd1)
     again = sk.substep_vjp(*args)
     torch.cuda.synchronize()
     for a, b in zip(got[:3] + got[4:], again[:3] + again[4:]):
         assert torch.equal(a, b)
     for i, lab in ((0, "dq"), (1, "dqd"), (2, "djoint_act"), (4, "dH")):
-        check_vjp(lab, got[i], want[i], 2e-4, 1e-5)
-        nb = check_against_f64(lab, got[i], want[i], exact[i], 2e-4, 1e-5,
-                               near=functools.partial(near, i))[5]
-        print(f"{lab}: {nb} envs at a select's boundary")
+        w = _witness("Ant", "substep_vjp", i, args)
+        check_vjp(lab, got[i], want[i], 2e-4, 1e-5, witness=w)
+        apart = []
+        check_against_f64(lab, got[i], want[i], exact[i], 2e-4, 1e-5,
+                          margins=margins, witness=w, apart=apart)
+        print(f"{lab}: {len(apart)} envs at a select's boundary", *apart,
+              sep="\n")
 
 
 @pytest.mark.parametrize("name", ["substep_forward", "substep_vjp"])
@@ -216,23 +230,23 @@ def _check_model(cuda, name, mm, settle):
     pv = lb.substep_vjp_lb(*args, gq, gqd)
     xv = lb.substep_vjp_lb(env.model, *f64(q1, qd1, ja, ma), h,
                            *f64(H, Hinv, gq, gqd))
-    near_f = near_f64(lambda q_, qd_: lb.substep_lb(
-        env.model, q_, qd_, *f64(ja, ma), h, *f64(H, Hinv)), q1, qd1)
-    near_v = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
-        env.model, q_, qd_, *f64(ja, ma), h, *f64(H, Hinv, gq, gqd)), q1,
-        qd1)
+    margins = lb.select_margins(env.model, q1, qd1)
     torch.cuda.synchronize()
     floor = f64_floor(name)
+    apart = []
     for i, (lab, atol) in enumerate((("q", 2e-6), ("qd", 2e-5))):
-        nb = check_kernel(f"{name} {lab}", kf[i], pf[i], xf[i], 2e-5, atol,
-                          floor, functools.partial(near_f, i))[2][5]
-        print(f"{name} {lab}: {nb} envs at a select's boundary")
+        check_kernel(f"{name} {lab}", kf[i], pf[i], xf[i], 2e-5, atol, floor,
+                     margins, _witness(name, "substep_forward", i, args),
+                     apart)
     assert (kv[3] is None) == (ma is None)
     for i, lab in enumerate(("dq", "dqd", "djoint_act", "dma", "dH")):
         if kv[i] is not None:
-            nb = check_kernel(f"{name} {lab}", kv[i], pv[i], xv[i], 2e-4,
-                              1e-5, floor, functools.partial(near_v, i))[2][5]
-            print(f"{name} {lab}: {nb} envs at a select's boundary")
+            check_kernel(f"{name} {lab}", kv[i], pv[i], xv[i], 2e-4, 1e-5,
+                         floor, margins, _witness(
+                             name, "substep_vjp", i, args + (gq, gqd)),
+                         apart)
+    print(f"{name}: {len(apart)} envs at a select's boundary", *apart,
+          sep="\n")
     for kname in ("substep_forward", "substep_vjp"):
         k = sk._prepare(kname, env.model, cuda, None)
         assert k.built.spill_store_bytes == k.built.spill_load_bytes == 0
@@ -248,3 +262,112 @@ def test_kernels_match_plain_on_mjcf_models(cuda, name):
 def test_kernels_match_plain_on_urdf_and_snu_models(cuda, name):
     """CartPole's fixed root, SNU Humanoid's ball joints and muscles."""
     _check_model(cuda, name, *_URDF_SNU[name])
+
+
+@pytest.mark.parametrize("name", ["Ant", "Humanoid", "SNUHumanoid"])
+def test_plain_path_is_repeatable(cuda, name):
+    """The plain refresh, cached substep and both VJPs, run twice at E =
+    4096 on a settled state (SNU Humanoid's muscles at random
+    activations), give the same bits: every sum over rows that share a
+    destination runs in a fixed order, none through atomics."""
+    mm, settle = {"Ant": (16, 14), **_MJCF, **_URDF_SNU}[name]
+    E = 4096
+    env = envs.make(name, num_envs=E, stochastic_init=True,
+                    MM_caching_frequency=mm, device=cuda)
+    s = _settled(env, settle)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    acts = torch.rand((E, env.num_acts), generator=g, device=cuda) * 2 - 1
+    ja, ma = env.action_to_controls(acts)
+    if ja is None:
+        ja = torch.zeros((E, env.model.dof_count), device=cuda)
+    check_repeatable(env.model, s.joint_q.T.contiguous(),
+                     s.joint_qd.T.contiguous(), ja.T.contiguous(),
+                     None if ma is None else ma.T.contiguous(),
+                     env.dt / env.sim_substeps, g)
+
+
+def test_failed_kernel_check_leaves_a_witness(cuda, tmp_path, monkeypatch):
+    """K2's dq on Ant with one entry pushed off by 1 in an env whose
+    selects lie far from their boundaries: the check fails, names the
+    witness, and the witness replays on the CPU with the saved plain value
+    and float64 answer."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import replay_witness
+
+    monkeypatch.setattr(testing, "WITNESS_DIR", str(tmp_path))
+    E = 256
+    env = envs.make("Ant", num_envs=E, stochastic_init=True,
+                    MM_caching_frequency=16, device=cuda)
+    s = _settled(env)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    ja = env.action_to_controls(torch.rand(
+        (E, env.num_acts), generator=g, device=cuda) * 2 - 1)[0]
+    ja = ja.T.contiguous()
+    h = env.dt / env.sim_substeps
+    with torch.no_grad():
+        q1, qd1, H, Hinv = lb.refresh_substep_lb(
+            env.model, s.joint_q.T.contiguous(), s.joint_qd.T.contiguous(),
+            ja, None, h)
+    gq = torch.randn(q1.shape, generator=g, device=cuda)
+    gqd = torch.randn(qd1.shape, generator=g, device=cuda)
+    args = (env.model, q1, qd1, ja, None, h, H, Hinv, gq, gqd)
+    got = sk.substep_vjp(*args)[0].clone()
+    want = lb.substep_vjp_lb(*args)[0]
+    exact = lb.substep_vjp_lb(env.model, *(t.double() for t in args[1:4]),
+                              None, h, *(t.double() for t in args[6:]))[0]
+    margins = lb.select_margins(env.model, q1, qd1)
+    least = torch.stack(list(margins.values())).amin(0)
+    e = int(torch.argmax(least))
+    assert float(least[e]) > testing.SELECT_ULPS
+    got[3, e] += 1.0
+    with pytest.raises(AssertionError, match=f"env {e}.*witness ") as err:
+        check_kernel("Ant dq", got, want, exact, 2e-4, 1e-5, margins=margins,
+                     witness=_witness("Ant", "substep_vjp", 0, args))
+    r = replay_witness.replay(str(err.value).split("witness ")[1],
+                              use_jax=False)
+    assert r["entries"] == [(3,)]
+    torch.testing.assert_close(torch.as_tensor(r["plain32"]),
+                               torch.as_tensor(r["plain"]), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(torch.as_tensor(r["plain64"]),
+                               torch.as_tensor(r["want"]), rtol=1e-12,
+                               atol=0.0)
+
+
+def _trainer_cfg(algo, logdir, **config):
+    import yaml
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    with open(os.path.join(root, "examples", "cfg", algo, "ant.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["params"]["general"] = {"seed": 0, "logdir": str(logdir)}
+    cfg["params"]["config"].update(config)
+    return cfg
+
+
+@pytest.mark.parametrize("algo", ["ppo", "sac"])
+def test_model_free_epochs_never_launch_the_adjoint(cuda, algo, tmp_path):
+    """One PPO epoch and one SAC learning epoch on Ant (64 envs, 4 steps)
+    step the env without gradients: the forward kernel runs on each of the
+    15 cached substeps of a step, the adjoint kernel never."""
+    from diffrl_tpu_torch.algorithms import PPO, SAC
+
+    if algo == "ppo":
+        cfg = _trainer_cfg(algo, tmp_path, num_actors=64, steps_num=4,
+                           minibatch_size=128, mini_epochs=2, max_epochs=1)
+        trainer = PPO(cfg, device=cuda)
+    else:
+        cfg = _trainer_cfg(algo, tmp_path, num_actors=64,
+                           num_steps_per_episode=4,
+                           batch_size=128, num_seed_steps=1, max_epochs=2,
+                           replay_buffer_size=4096)
+        trainer = SAC(cfg, device=cuda)
+        trainer.train_epoch(seed_phase=True)
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    trainer.train_epoch()
+    torch.cuda.synchronize()
+    assert (sk.substep_forward.launches, sk.substep_vjp.launches) == (
+        4 * 15, 0)

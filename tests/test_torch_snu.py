@@ -18,12 +18,12 @@ full SNU tree.
   g++ (tests/_torch_host_kernels.py) against their plain versions and
   float64 by testing.check_kernel at E = 32 and 37 (a partial block), dma
   included; the adjoint also at rest;
-- the float64 rule's envs at a select's boundary (testing.near_f64), which
-  settled SNU Humanoid states can hold.
+- the float64 rule's envs at a select's boundary (a named select within
+  testing.SELECT_ULPS float32 units of it, articulation_lb.select_margins),
+  which settled SNU Humanoid states can hold.
 """
 
 import dataclasses
-import functools
 import os
 
 import jax.numpy as jnp
@@ -38,7 +38,7 @@ import diffrl_tpu_torch.envs as tenvs
 from diffrl_tpu_torch.sim import articulation_lb as tlb
 from diffrl_tpu_torch.sim import substep_kernels as sk
 from diffrl_tpu_torch.sim.model import JOINT_REVOLUTE, ModelBuilder
-from diffrl_tpu_torch.testing import check_against_f64, near_f64
+from diffrl_tpu_torch.testing import check_against_f64
 
 from _torch_host_kernels import build_host_kernel
 from _torch_urdf_snu import check_host_kernels, host_inputs
@@ -144,12 +144,15 @@ def test_kernel_sources_match_plain_on_host(host, E, rest):
 
 
 def test_f64_rule_sets_select_boundaries_apart():
-    """testing.check_against_f64 with near_f64: where a select's argument
-    lies within float32 rounding of its boundary (a contact just touching,
-    as some settled SNU Humanoid states hold) and the kernel alone took its
-    other side, the answer jumps by 10 there; the env is counted apart, as
-    a float64 answer at a nearby state takes that side too. The same jump
-    in an env away from the boundary still fails."""
+    """testing.check_against_f64 with select margins: where a select's
+    argument lies within float32 rounding of its boundary (a contact just
+    touching, as some settled SNU Humanoid states hold) and the kernel
+    alone took its other side, the answer jumps by 10 there; the env is
+    counted apart and named with its select and margin. The same jump in an
+    env whose selects lie far from their boundaries still fails, and so
+    does an error that a float64 answer at a random state within 4 float32
+    units of the inputs (the rule this one replaced) would have matched,
+    where no select is near its boundary."""
     def fn(x, y):
         return (torch.where(x - 1.0 < 0.0, 10.0, 0.0) + x * y,)
 
@@ -157,17 +160,40 @@ def test_f64_rule_sets_select_boundaries_apart():
     y = torch.tensor([[0.5, 0.25, 1.0, 2.0]])
     exact = fn(x.double(), y.double())[0]
     plain = exact.float()
-    near = functools.partial(near_f64(fn, x, y), 0)
+    # the select x - 1 < 0, in float32 units of x
+    margins = {"depth": ((x.double() - 1.0).abs() / (2.0 ** -23 * x.abs()))
+               [0]}
     kernel = plain.clone()
     kernel[0, 0] += 10.0
     with pytest.raises(AssertionError, match="vs float64"):
-        check_against_f64("no nearby states", kernel, plain, exact, 2e-4,
-                          1e-5)
-    *_, need, at_boundary = check_against_f64("boundary", kernel, plain,
-                                              exact, 2e-4, 1e-5, near=near)
+        check_against_f64("no margins", kernel, plain, exact, 2e-4, 1e-5)
+    apart = []
+    *_, need, at_boundary = check_against_f64(
+        "boundary", kernel, plain, exact, 2e-4, 1e-5, margins=margins,
+        apart=apart)
     assert (need, at_boundary) == (0.0, 1)
+    assert apart == ["boundary env 0: depth at 0 float32 units"]
     kernel[0, 1] += 10.0
     with pytest.raises(AssertionError, match=r"1 envs at a select's "
-                       r"boundary\).* in 1 envs, first \[0, 1\]"):
+                       r"boundary\).* in 1 envs, first \[0, 1\].*"
+                       r"depth at 4\.19e\+06 float32 units"):
         check_against_f64("fault", kernel, plain, exact, 2e-4, 1e-5,
-                          near=near)
+                          margins=margins)
+
+    # a steep continuous answer at 0: a state 2 float32 units away moves
+    # it by 768, as far as a fault in the kernel
+    def steep(x):
+        return ((x - 3.0) * 2.0 ** 30,)
+
+    x = torch.tensor([[1.0, 3.0]])
+    exact = steep(x.double())[0]
+    plain = exact.float()
+    kernel = plain.clone()
+    kernel[0, 1] += 768.0
+    neighbour = steep(x.double() * (1.0 + 2.0 ** -22))[0]
+    check_against_f64("a neighbour", kernel, plain, neighbour, 2e-4, 1e-5)
+    far = {"depth": torch.full((2,), 1e6, dtype=torch.float64)}
+    with pytest.raises(AssertionError, match=r"0 envs at a select's "
+                       r"boundary\).* first \[0, 1\]"):
+        check_against_f64("steep", kernel, plain, exact, 2e-4, 1e-5,
+                          margins=far)

@@ -17,7 +17,11 @@ kernel and the plain version swapped: where the plain version takes the
 float64 branch of every select, the second is the float32 noise the rule's
 floor must cover. Where either needs more than the model's floor
 (testing.f64_floor), it also prints how many envs are at a select's
-boundary (testing.near_f64) and the least floor of the others. It prints
+boundary (a select within testing.SELECT_ULPS float32 units of it,
+articulation_lb.select_margins) and the least floor of the others. Per
+case it prints how many envs have a select within SELECT_ULPS units, and
+the plain path's float32 rounding of the select arguments in those units
+(articulation_lb.select_rounding), which SELECT_ULPS is set from. It prints
 each side's largest error against float64, and the entries where kernel
 and plain version differ by more than check_vjp allows: how many, and at
 how many of them the kernel is the one further from float64.
@@ -25,7 +29,6 @@ how many of them the kernel is the one further from float64.
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 import sys
@@ -39,19 +42,18 @@ import diffrl_tpu_torch.envs as envs  # noqa: E402
 from diffrl_tpu_torch.sim import articulation_lb as lb  # noqa: E402
 from diffrl_tpu_torch.sim import substep_kernels as sk  # noqa: E402
 from diffrl_tpu_torch.testing import (check_against_f64, env_scale,  # noqa
-                                      f64_floor, near_f64)
+                                      f64_floor)
 
 CASES = ((4096, 1, True), (4096, 2, True), (4096, 3, False),
          (1000, 0, False))
 
 
-def report(what, labels, kernel, plain, exact, rtol, atol, near=None):
-    """Prints each output's least floors and errors (with ``near``, a
-    function of the output's index as testing.near_f64 gives, the envs at
-    a select's boundary apart, in either role: those that need more than
-    the model's floor against the exact answer and meet it against a
-    nearby one); returns the envs of the outputs whose least floor passes
-    100 (a select taken on another side, not float32 noise)."""
+def report(what, labels, kernel, plain, exact, rtol, atol, margins=None):
+    """Prints each output's least floors and errors (with ``margins``,
+    articulation_lb.select_margins of the inputs, the envs at a select's
+    boundary apart, in either role, named with the select and its margin);
+    returns the envs of the outputs whose least floor passes 100 (a select
+    taken on another side, not float32 noise)."""
     far = set()
     floor = f64_floor(what.split()[0])
     for i, (lab, k, p, x) in enumerate(zip(labels, kernel, plain, exact)):
@@ -64,17 +66,19 @@ def report(what, labels, kernel, plain, exact, rtol, atol, near=None):
                                     floor=math.inf)[4]
         for role, a, b, least in (("kernel", k, p, need),
                                   ("swapped", p, k, swapped)):
-            if near is None or least <= floor:
+            if margins is None or least <= floor:
                 continue
             try:
+                apart = []
                 r = check_against_f64(lab, a, b, x, rtol, atol, floor,
-                                      functools.partial(near, i))
-                at = (f"{r[5]} envs at a select's boundary, the others' "
-                      f"least floor {r[4]:.3f}")
+                                      margins, apart=apart)
+                at = (f"{r[5]} envs at a select's boundary "
+                      f"({'; '.join(apart)}), the others' least floor "
+                      f"{r[4]:.3f}")
             except AssertionError as err:
                 at = str(err)
-            print(f"{what} {lab} ({role}): floor {floor:g} with the nearby "
-                  f"states: {at}", flush=True)
+            print(f"{what} {lab} ({role}): floor {floor:g} with the select "
+                  f"margins: {at}", flush=True)
         off = (k - p).abs() > rtol * p.abs() + atol * env_scale(p)
         worse = off & ((k.double() - x).abs() > (p.double() - x).abs())
         print(f"{what} {lab}: least floor {need:.3f}, swapped "
@@ -83,26 +87,6 @@ def report(what, labels, kernel, plain, exact, rtol, atol, near=None):
               f"the kernel further from float64 at {int(worse.sum())}",
               flush=True)
     return far
-
-
-def near_selects(model, q, qd, env):
-    """The env's ground contacts nearest to their two selects: the depth
-    c (c < 0 is in contact) and the squared tangential speed against its
-    guard 1e-12, smallest |value| first."""
-    from diffrl_tpu_torch.sim.articulation_lb import _cross, _fk, _tpoint
-
-    plan = lb._plan_for(model, q.device, q.dtype)
-    qe, qde = q[:, env:env + 1], qd[:, env:env + 1]
-    X_sc, X_sm = _fk(plan, qe)
-    _, v_s, _ = lb._id(plan, qe, qde, X_sc, X_sm)
-    X, v6 = X_sc[plan.contact_rows_t], v_s[plan.contact_rows_t]
-    p = (_tpoint(X, plan.contact_point)
-         - plan.ground_normal * plan.contact_dist)
-    dpdt = v6[:, 3:6] + _cross(v6[:, 0:3], p)
-    vt = dpdt - plan.ground_normal * dpdt[:, 1:2]
-    c = p[:, 1, 0]
-    vt2 = (vt * vt).sum(1)[:, 0] - 1e-12
-    return (sorted(c.abs().tolist())[:3], sorted(vt2.abs().tolist())[:3])
 
 
 def main(argv) -> int:
@@ -141,29 +125,31 @@ def main(argv) -> int:
         pf = lb.substep_lb(*args[:8])
         xf = lb.substep_lb(env.model, *f64(q1, qd1, jat, mat), h,
                            *f64(H, Hinv))
-        nf = near_f64(lambda q_, qd_: lb.substep_lb(
-            env.model, q_, qd_, *f64(jat, mat), h, *f64(H, Hinv)), q1, qd1)
+        margins = lb.select_margins(env.model, q1, qd1)
+        least = torch.stack(list(margins.values())).amin(0)
+        print(f"{name} E={E} seed {seed}: envs with a select within "
+              f"SELECT_ULPS = {lb.SELECT_ULPS:g} units "
+              f"{int((least <= lb.SELECT_ULPS).sum())}; the plain path's "
+              f"float32 rounding of the select arguments, max units: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in lb.select_rounding(
+                  env.model, q1, qd1).items()), flush=True)
         report(f"{name} E={E} seed {seed} substep forward", ("q", "qd"),
-               kf, pf, xf, 2e-5, 2e-5, nf)
+               kf, pf, xf, 2e-5, 2e-5, margins)
         kv = sk.substep_vjp(*args)
         pv = lb.substep_vjp_lb(*args)
         xv = lb.substep_vjp_lb(env.model, *f64(q1, qd1, jat, mat), h,
                                *f64(*args[6:]))
-        nv = near_f64(lambda q_, qd_: lb.substep_vjp_lb(
-            env.model, q_, qd_, *f64(jat, mat), h, *f64(*args[6:])), q1,
-            qd1)
         keep = [i for i in range(5) if kv[i] is not None]
         far = report(f"{name} E={E} seed {seed} substep",
                      [("dq", "dqd", "djoint_act", "dma", "dH")[i]
                       for i in keep],
                      [kv[i] for i in keep], [pv[i] for i in keep],
-                     [xv[i] for i in keep], 2e-4, 1e-5,
-                     lambda j: nv(keep[j]))
+                     [xv[i] for i in keep], 2e-4, 1e-5, margins)
         for e in sorted(far):
-            c, vt2 = near_selects(env.model, q1, qd1, e)
-            print(f"{name} E={E} seed {seed} env {e}: smallest |contact "
-                  f"depth| {c}, smallest |tangential speed^2 - 1e-12| "
-                  f"{vt2}", flush=True)
+            print(f"{name} E={E} seed {seed} env {e}: its selects' float32 "
+                  f"units from their boundaries " + ", ".join(
+                      f"{k} {float(v[e]):.4g}" for k, v in margins.items()),
+                  flush=True)
         if with_step:
             w_q = torch.randn(s.joint_q.shape, generator=gen, device=dev)
             w_qd = torch.randn(s.joint_qd.shape, generator=gen, device=dev)
