@@ -9,8 +9,8 @@ from the env's generator. The returned obs comes from the post-reset state;
 
 The hooks work on the whole batch ([E, ...] tensors, env-leading) where the
 JAX package vmaps single-env hooks. The step is differentiable: gradients
-reach actions and the incoming state through the simulator's replay
-reverse pass, and ``grad_nan_guard`` sanitizes the cotangents of its
+reach actions and the incoming state through the simulator's reverse pass
+(``sim_backward``), and ``grad_nan_guard`` sanitizes the cotangents of its
 inputs.
 """
 
@@ -22,8 +22,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .. import default_device
+from ..sim.articulation import simulate
 from ..sim.articulation_lb import simulate_batched_lb
-from ..sim.model import Model
+from ..sim.model import Model, State
 
 
 @dataclass
@@ -81,6 +82,22 @@ class DiffEnv:
     Subclasses build ``self.model`` and implement the batched hooks. The env
     owns a ``torch.Generator`` on its device (seeded with ``seed``) that
     draws every initial and reset state.
+
+    ``sim_backward`` chooses the simulator and its reverse pass:
+
+    - ``"lb"``: the link-batched env-minor engine with the replay reverse
+      pass (``simulate_batched_lb``), whose cached substeps run in the
+      hand-written kernels K1 and K2 on CUDA tensors (their plain versions
+      on the CPU). It computes what the JAX package's ``"lb"`` and
+      ``"pallas"`` compute;
+    - ``"remat"``: ``sim.articulation.simulate``, autograd through
+      ``torch.utils.checkpoint`` per substep (``remat_granularity`` cached
+      substeps per region), the general path (particles included);
+    - ``None`` or ``"auto"``: the JAX package's rule, ``"lb"`` when the
+      model qualifies (no particles, links, substeps a multiple of
+      MM_caching_frequency), else ``"remat"``;
+    - ``"manual"`` and ``"lb_ad"`` are not ported and raise
+      NotImplementedError (ROADMAP.md A6).
     """
 
     num_obs: int = 0
@@ -98,6 +115,8 @@ class DiffEnv:
         MM_caching_frequency: int = 1,
         early_termination: bool = True,
         device=None,
+        remat_granularity: int = 1,
+        sim_backward: Optional[str] = None,
     ):
         self.device = default_device(device)
         self.num_envs = num_envs
@@ -109,9 +128,21 @@ class DiffEnv:
         if self.sim_substeps % max(MM_caching_frequency, 1):
             raise ValueError(
                 "sim_substeps must be a multiple of MM_caching_frequency")
+        self.remat_granularity = remat_granularity
+        if sim_backward in ("manual", "lb_ad"):
+            raise NotImplementedError(
+                f"sim_backward={sim_backward!r} is not ported (ROADMAP.md "
+                f"A6); use 'lb' or 'remat'")
+        if sim_backward not in (None, "auto", "lb", "remat"):
+            raise ValueError(f"unknown sim_backward {sim_backward!r}")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.model: Model = self.build_model()
+        if sim_backward in (None, "auto"):
+            lb_ok = (self.model.particle_count == 0
+                     and self.model.link_count > 0)
+            sim_backward = "lb" if lb_ok else "remat"
+        self.sim_backward = sim_backward
 
     # -- batched hooks ---------------------------------------------------------
 
@@ -178,12 +209,20 @@ class DiffEnv:
         joint_act, muscle_act = self.action_to_controls(actions)
 
         # per-entry gradient firewall on the simulator's inputs
-        q, qd = simulate_batched_lb(
-            self.model, *map(grad_nan_guard, (
-                env_state.joint_q, env_state.joint_qd, joint_act,
-                muscle_act)),
-            dt=self.dt, substeps=self.sim_substeps,
-            mass_matrix_freq=self.mm_caching_frequency)
+        q, qd, ja, ma = map(grad_nan_guard, (
+            env_state.joint_q, env_state.joint_qd, joint_act, muscle_act))
+        if self.sim_backward == "lb":
+            q, qd = simulate_batched_lb(
+                self.model, q, qd, ja, ma, dt=self.dt,
+                substeps=self.sim_substeps,
+                mass_matrix_freq=self.mm_caching_frequency)
+        else:
+            s = simulate(self.model, State(joint_q=q, joint_qd=qd),
+                         joint_act=ja, muscle_act=ma, dt=self.dt,
+                         substeps=self.sim_substeps,
+                         mass_matrix_freq=self.mm_caching_frequency,
+                         remat_granularity=self.remat_granularity)
+            q, qd = s.joint_q, s.joint_qd
 
         progress = env_state.progress + 1
 

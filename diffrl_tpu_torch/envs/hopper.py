@@ -38,12 +38,13 @@ class HopperEnv(DiffEnv):
 
     def __init__(self, num_envs=4096, seed=0, episode_length=1000,
                  stochastic_init=False, MM_caching_frequency=1,
-                 early_termination=True, device=None):
+                 early_termination=True, device=None, **kw):
         super().__init__(
             num_envs=num_envs, seed=seed, episode_length=episode_length,
             stochastic_init=stochastic_init,
             MM_caching_frequency=MM_caching_frequency,
             early_termination=early_termination, device=device,
+            **kw,
         )
         self.joint_q_init = torch.as_tensor(self.model.joint_q_init,
                                             device=self.device)

@@ -52,13 +52,14 @@ class SNUHumanoidEnv(DiffEnv):
 
     def __init__(self, num_envs=4096, seed=0, episode_length=1000,
                  stochastic_init=False, MM_caching_frequency=1,
-                 early_termination=True, mtu_actuations=True, device=None):
+                 early_termination=True, mtu_actuations=True, device=None, **kw):
         self.mtu_actuations = mtu_actuations
         super().__init__(
             num_envs=num_envs, seed=seed, episode_length=episode_length,
             stochastic_init=stochastic_init,
             MM_caching_frequency=MM_caching_frequency,
             early_termination=early_termination, device=device,
+            **kw,
         )
         C, D = self.model.coord_count, self.model.dof_count
         self.num_acts = (self.model.topology.muscle_count if mtu_actuations

@@ -1,5 +1,7 @@
-"""Articulated-body engine (port of diffrl_tpu/sim, the articulation subset
-on the SHAC training path)."""
+"""The simulator (port of diffrl_tpu/sim): the scene model and builder, the
+articulated engine in env-minor layout with its replay reverse pass, the
+per-env articulation API and the coupled articulation + particle engine
+with its remat backward, particles, rigid bodies and XPBD."""
 
 from .model import (
     GEO_BOX,
@@ -14,10 +16,26 @@ from .model import (
     JOINT_FREE,
     JOINT_PRISMATIC,
     JOINT_REVOLUTE,
+    Mesh,
     Model,
     ModelBuilder,
     State,
     Topology,
+    bake_mesh_sdf,
+)
+from .articulation import (
+    DynamicsAux,
+    articulation_substep,
+    coupled_substep,
+    eval_fk,
+    eval_ground_contacts,
+    eval_id,
+    eval_mass_matrix,
+    eval_muscles,
+    eval_spatial_inertias,
+    eval_tau,
+    simulate,
+    simulate_xpbd,
 )
 from .articulation_lb import (
     refresh_substep_lb,
@@ -25,3 +43,5 @@ from .articulation_lb import (
     substep_lb,
     substep_vjp_lb,
 )
+from .integrators import SemiImplicitIntegrator, XPBDIntegrator
+from . import particles

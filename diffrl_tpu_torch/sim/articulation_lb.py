@@ -240,12 +240,15 @@ class _Fan:
 
 
 def _fan(idx, rows: int, device) -> _Fan:
-    idx = np.asarray(idx, np.int64)
-    lists = [np.nonzero(idx == r)[0] for r in range(rows)]
-    width = max([1] + [len(x) for x in lists])
+    idx = np.asarray(idx, np.int64).reshape(-1)
+    # positions whose index names no row (a root's parent) are in no list
+    order = np.nonzero(idx < rows)[0]
+    order = order[np.argsort(idx[order], kind="stable")]
+    counts = np.bincount(idx[order], minlength=rows)
+    width = max([1] + counts.tolist())
     table = np.full((rows, width), len(idx), np.int64)
-    for r, x in enumerate(lists):
-        table[r, :len(x)] = x
+    first = np.cumsum(counts) - counts
+    table[idx[order], np.arange(len(order)) - first[idx[order]]] = order
     return _Fan(torch.as_tensor(idx, device=device),
                 torch.as_tensor(table, device=device))
 
@@ -1189,11 +1192,12 @@ def simulate_batched_lb(
     When an input requires grad, the replay reverse pass
     (_SimulateReplay) differentiates it; otherwise nothing is saved.
     ``reverse="residual"`` (the reference's autodiff-through-the-scan
-    variant, measured slower there) is not ported.
+    variant, measured slower there) is not ported (ROADMAP.md A6).
     """
     if reverse != "replay":
         raise NotImplementedError(
-            f"reverse={reverse!r}: only the replay reverse pass is ported")
+            f"reverse={reverse!r}: only the replay reverse pass is ported; "
+            f"'residual' waits in ROADMAP.md A6")
     if substeps % mass_matrix_freq != 0:
         raise ValueError("substeps must be a multiple of mass_matrix_freq")
     nblocks = substeps // mass_matrix_freq

@@ -1,9 +1,8 @@
 """Minimal triangle-mesh file reader (OBJ / STL), dependency-free (port of
 diffrl_tpu/sim/importers/meshio.py, unchanged).
 
-The loader of the URDF importer's <mesh> collision geometry. The port's
-URDF importer does not take meshes yet (mesh shapes come with the
-unrolled engine, ROADMAP A11), so nothing of the port calls it so far.
+The loader of the URDF importer's <mesh> collision geometry (GEO_MESH
+shapes, baked into voxel SDFs for the particles' soft contacts).
 
 Returns (vertices[N,3] float64, faces[M*3] int32 flat index list).
 """

@@ -3,11 +3,9 @@ unchanged semantics).
 
 Self-contained xml.etree parser: links + revolute/continuous/prismatic/
 fixed/floating joints with origins/limits/damping, box/sphere/cylinder
-collision shapes (cylinders become x-aligned capsules), and optional
-``<inertial>`` mass-property overrides. Triangle-mesh colliders (OBJ/STL
-through ``importers.meshio``) raise NotImplementedError: the port's
-ModelBuilder has no mesh shapes yet (they come with the unrolled engine,
-ROADMAP item A11). CartPole uses boxes only.
+collision shapes (cylinders become x-aligned capsules), triangle-mesh
+colliders (OBJ/STL through ``importers.meshio``) as GEO_MESH shapes, and
+optional ``<inertial>`` mass-property overrides.
 
 Enforced by tests/test_torch_envs_urdf_snu.py (field by field against the
 JAX package's import of the same file).
@@ -26,6 +24,7 @@ from ..model import (
     JOINT_FREE,
     JOINT_PRISMATIC,
     JOINT_REVOLUTE,
+    Mesh,
     ModelBuilder,
     np_quat_from_axis_angle,
     np_quat_mul,
@@ -34,6 +33,7 @@ from ..model import (
     np_transform,
     np_transform_identity,
 )
+from .meshio import load_mesh
 
 
 def _origin(node):
@@ -44,6 +44,27 @@ def _origin(node):
     xyz = np.fromstring(o.attrib.get("xyz", "0 0 0"), sep=" ")
     rpy = np.fromstring(o.attrib.get("rpy", "0 0 0"), sep=" ")
     return xyz, np_rpy2quat(*rpy)
+
+
+def _resolve_mesh_path(urdf_dir, raw):
+    """Resolve a URDF mesh filename: package:// URIs resolve best-effort by
+    stripping the scheme and walking up from the URDF directory."""
+    if raw.startswith("package://"):
+        tail = raw[len("package://"):]
+        probe = urdf_dir
+        for _ in range(6):
+            cand = os.path.join(probe, tail)
+            if os.path.exists(cand):
+                return cand
+            # also try dropping the leading package-name component
+            sub = tail.split("/", 1)
+            if len(sub) == 2 and os.path.exists(os.path.join(probe, sub[1])):
+                return os.path.join(probe, sub[1])
+            probe = os.path.dirname(probe)
+        return os.path.join(urdf_dir, tail)
+    if os.path.isabs(raw):
+        return raw
+    return os.path.join(urdf_dir, raw)
 
 
 def _add_collisions(builder, link, link_node, ke, kd, kf, mu, urdf_dir="."):
@@ -78,9 +99,14 @@ def _add_collisions(builder, link, link_node, ke, kd, kf, mu, urdf_dir="."):
                 ke=ke, kd=kd, kf=kf, mu=mu,
             )
         if mesh is not None:
-            raise NotImplementedError(
-                f"URDF <mesh> collider in {urdf_dir}: the port has no mesh "
-                f"shapes yet (ROADMAP item A11)")
+            path = _resolve_mesh_path(urdf_dir, mesh.attrib["filename"])
+            scale = np.fromstring(mesh.attrib.get("scale", "1 1 1"), sep=" ")
+            verts, faces = load_mesh(path)
+            builder.add_shape_mesh(
+                link, pos, rot, mesh=Mesh(verts, faces),
+                scale=(float(scale[0]), float(scale[1]), float(scale[2])),
+                ke=ke, kd=kd, kf=kf, mu=mu,
+            )
 
 
 def _apply_inertial(builder, link, link_node):

@@ -1,10 +1,13 @@
 """Scene description: ModelBuilder (host-side) -> Model/State (port of
-diffrl_tpu/sim/model.py, the articulation subset).
+diffrl_tpu/sim/model.py).
 
-A Model describes ONE articulation template; environments are a batch axis.
-Model arrays stay float32 numpy on the host: the engine's plan
-(sim/articulation_lb.py) moves what it needs to the device once per
-(Model, device). Particles, cloth, FEM and the mesh SDF are not ported yet.
+A Model describes ONE scene template: at most one articulation, plus
+particles, springs, cloth triangles, bending edges, FEM tetrahedra and
+collision shapes (GEO_MESH shapes baked into voxel SDFs by
+``bake_mesh_sdf``); environments are a batch axis. Model arrays stay
+float32 numpy on the host: the engines' plans (sim/articulation_lb.py,
+sim/particles.py) move what they need to the device once per
+(Model, device, dtype).
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from .. import default_device
 
 # geometry types
 GEO_SPHERE = 0
@@ -182,6 +188,135 @@ def spatial_matrix_from_inertia(I, m):
 # ---------------------------------------------------------------------------
 
 
+class Mesh:
+    """Triangle mesh with mass/inertia from signed-tet quadrature
+    (model.py:41-112 semantics, vectorized)."""
+
+    def __init__(self, vertices, indices):
+        self.vertices = np.array(vertices, dtype=np.float64).reshape(-1, 3)
+        self.indices = np.array(indices, dtype=np.int32).reshape(-1)
+
+        tris = self.indices.reshape(-1, 3)
+        p = self.vertices[tris[:, 0]]
+        q = self.vertices[tris[:, 1]]
+        r = self.vertices[tris[:, 2]]
+        # signed tetra volumes against the origin
+        vols = np.einsum("ij,ij->i", p, np.cross(q, r)) / 6.0
+        self.mass = float(np.sum(vols))
+
+        # second-order quadrature of x x^T over each tet (origin as 4th vertex)
+        I = np.zeros((3, 3))
+        for a, b, c, v in zip(p, q, r, vols):
+            # covariance of a tet with vertices (0, a, b, c):
+            # C = v/20 * (sum_i sum_j x_i x_j^T + sum_i x_i x_i^T)
+            V = np.stack([a, b, c])
+            s = V.sum(axis=0)
+            C = (np.outer(s, s) + V.T @ V) * (v / 20.0)
+            I += np.trace(C) * np.eye(3) - C
+        self.I = I
+
+
+def _np_dist_point_tris(pts: np.ndarray, va, vb, vc) -> np.ndarray:
+    """Unsigned distance from points [n, 3] to triangles ([T, 3] each) -> [n, T].
+
+    Candidate-minimum form: min over the three edge segments, replaced by the
+    plane distance where the plane projection lands inside the triangle.
+    """
+    n, T = pts.shape[0], va.shape[0]
+    p = pts[:, None, :]  # [n, 1, 3]
+
+    def seg_d2(s0, s1):
+        d = s1 - s0  # [T, 3]
+        dd = np.maximum(np.einsum("tk,tk->t", d, d), 1e-18)
+        t = np.clip(np.einsum("ntk,tk->nt", p - s0, d) / dd, 0.0, 1.0)
+        diff = p - (s0 + t[..., None] * d)
+        return np.einsum("ntk,ntk->nt", diff, diff)
+
+    d2 = np.minimum(seg_d2(va, vb), np.minimum(seg_d2(vb, vc), seg_d2(vc, va)))
+
+    nrm = np.cross(vb - va, vc - va)  # [T, 3]
+    nn = np.maximum(np.einsum("tk,tk->t", nrm, nrm), 1e-18)
+    h = np.einsum("ntk,tk->nt", p - va, nrm) / np.sqrt(nn)  # signed plane height
+    q = p - h[..., None] * (nrm / np.sqrt(nn)[:, None])     # plane projection
+    # barycentric sign tests of the projection
+    s0 = np.einsum("ntk,tk->nt", np.cross(vb - va, q - va), nrm)
+    s1 = np.einsum("ntk,tk->nt", np.cross(vc - vb, q - vb), nrm)
+    s2 = np.einsum("ntk,tk->nt", np.cross(va - vc, q - vc), nrm)
+    inside = (s0 >= 0.0) & (s1 >= 0.0) & (s2 >= 0.0)
+    d2 = np.where(inside, np.minimum(d2, h * h), d2)
+    return np.sqrt(d2)
+
+
+def _np_winding(pts: np.ndarray, va, vb, vc) -> np.ndarray:
+    """Generalized winding number of points [n, 3] w.r.t. a triangle soup
+    (van Oosterom-Strackee solid angles summed over triangles) -> [n].
+    ~1 inside a watertight mesh, ~0 outside."""
+    a = va[None] - pts[:, None, :]
+    b = vb[None] - pts[:, None, :]
+    c = vc[None] - pts[:, None, :]
+    la = np.linalg.norm(a, axis=-1)
+    lb = np.linalg.norm(b, axis=-1)
+    lc = np.linalg.norm(c, axis=-1)
+    num = np.einsum("ntk,ntk->nt", a, np.cross(b, c))
+    den = (
+        la * lb * lc
+        + np.einsum("ntk,ntk->nt", a, b) * lc
+        + np.einsum("ntk,ntk->nt", b, c) * la
+        + np.einsum("ntk,ntk->nt", c, a) * lb
+    )
+    omega = 2.0 * np.arctan2(num, den)
+    return np.sum(omega, axis=-1) / (4.0 * np.pi)
+
+
+def bake_mesh_sdf(vertices, indices, resolution: int = 24, pad_frac: float = 0.2):
+    """Bake a triangle mesh into a dense voxel SDF grid (host-side, numpy).
+
+    Beyond-reference capability: dflex carries GEO_MESH shapes through its
+    model (model.py:497, 956) but its contact kernel only evaluates
+    sphere/box/capsule SDFs (sim.py:931-948) — mesh shapes never generate
+    soft contacts there. Here every mesh shape is voxelized once at
+    ``finalize()`` into a [R, R, R] signed-distance grid that the soft
+    contacts sample with trilinear interpolation (particles.py:mesh_sdf) —
+    a gather + lerp, batched over shapes x particles.
+
+    Sign comes from the generalized winding number (robust for watertight
+    meshes; it assumes outward winding); distance from exact
+    point-triangle distance. Returns
+    (grid [R, R, R] f32, lower [3] f32, spacing [3] f32) with grid[i, j, k]
+    sampled at lower + (i, j, k) * spacing. The grid is padded by
+    ``pad_frac`` of the bbox diagonal so boundary values stay positive.
+    """
+    verts = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
+    tris = np.asarray(indices, dtype=np.int64).reshape(-1, 3)
+    va, vb, vc = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+
+    lo = verts.min(axis=0)
+    hi = verts.max(axis=0)
+    pad = pad_frac * float(np.linalg.norm(hi - lo))
+    lower = lo - pad
+    spacing = (hi - lo + 2.0 * pad) / (resolution - 1)
+
+    ax = [lower[d] + spacing[d] * np.arange(resolution) for d in range(3)]
+    gx, gy, gz = np.meshgrid(ax[0], ax[1], ax[2], indexing="ij")
+    pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+
+    # chunk over grid points to bound the [n, T] intermediates
+    chunk = max(1, int(2_000_000 // max(len(tris), 1)))
+    dist = np.empty(pts.shape[0])
+    wind = np.empty(pts.shape[0])
+    for s in range(0, pts.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        dist[sl] = _np_dist_point_tris(pts[sl], va, vb, vc).min(axis=1)
+        wind[sl] = _np_winding(pts[sl], va, vb, vc)
+
+    sdf = np.where(wind > 0.5, -dist, dist).reshape(resolution, resolution, resolution)
+    return (
+        sdf.astype(np.float32),
+        lower.astype(np.float32),
+        spacing.astype(np.float32),
+    )
+
+
 @dataclass(frozen=True)
 class Topology:
     """Static articulation structure."""
@@ -207,6 +342,27 @@ class Topology:
     @property
     def contact_count(self) -> int:
         return len(self.contact_body)
+
+    def dof_link(self) -> Tuple[int, ...]:
+        """Owning link of each dof."""
+        out = []
+        for i, t in enumerate(self.joint_type):
+            out.extend([i] * JOINT_DOF_COUNT[t])
+        return tuple(out)
+
+    def ancestor_dof_mask(self) -> np.ndarray:
+        """mask[l, d] = 1 if dof d's joint is on the chain root..l: the
+        static structure of the system Jacobian, J[l, :, d] = S_s[d] *
+        mask[l, d]."""
+        L, D = self.link_count, self.dof_count
+        mask = np.zeros((L, D), dtype=np.float32)
+        for l in range(L):
+            j = l
+            while j != -1:
+                s, e = self.joint_qd_start[j], self.joint_qd_start[j + 1]
+                mask[l, s:e] = 1.0
+                j = self.joint_parent[j]
+        return mask
 
 
 # eq=False: a Model is compared and hashed by identity, so per-Model caches
@@ -255,6 +411,59 @@ class Model:
 
     ground: bool = True
 
+    # particles / deformables (optional family)
+    particle_q_init: Optional[np.ndarray] = None   # [P, 3]
+    particle_qd_init: Optional[np.ndarray] = None  # [P, 3]
+    particle_inv_mass: Optional[np.ndarray] = None  # [P]
+    spring_indices: Optional[np.ndarray] = None    # [S, 2] int
+    spring_rest_length: Optional[np.ndarray] = None
+    spring_stiffness: Optional[np.ndarray] = None
+    spring_damping: Optional[np.ndarray] = None
+    tri_indices: Optional[np.ndarray] = None       # [T, 3] int
+    tri_poses: Optional[np.ndarray] = None         # [T, 2, 2]
+    tri_activations: Optional[np.ndarray] = None   # [T]
+    edge_indices: Optional[np.ndarray] = None      # [B, 4] int
+    edge_rest_angle: Optional[np.ndarray] = None   # [B]
+    tet_indices: Optional[np.ndarray] = None       # [Q, 4] int
+    tet_poses: Optional[np.ndarray] = None         # [Q, 3, 3]
+    tet_activations: Optional[np.ndarray] = None   # [Q]
+    tet_materials: Optional[np.ndarray] = None     # [Q, 3]
+
+    # cloth / FEM / contact material scalars (global)
+    tri_ke: float = 100.0
+    tri_ka: float = 100.0
+    tri_kd: float = 10.0
+    tri_drag: float = 0.0
+    tri_lift: float = 0.0
+    edge_ke: float = 100.0
+    edge_kd: float = 0.0
+    contact_ke: float = 1.0e4
+    contact_kd: float = 100.0
+    contact_kf: float = 100.0
+    contact_mu: float = 0.5
+
+    # cloth self-collision: False off; True all-pairs like the reference;
+    # "hashed" the spatial-hash broad-phase
+    # (particles.eval_triangles_contact_hashed). The hash is exact when
+    # cell_size >= contact radius (0.1) + the largest triangle
+    # centroid-to-vertex distance and no bucket holds more than capacity
+    # particles (the overflow is dropped)
+    enable_tri_collisions: object = False
+    tri_collision_cell_size: float = 0.2
+    tri_collision_buckets: int = 1024
+    tri_collision_capacity: int = 8
+    # XPBD constraint relaxation
+    relaxation: float = 1.0
+    # XPBD spring compliance alpha = 1/(ke dt^2) in the constraint
+    # denominator; the reference ships it commented out (default False)
+    xpbd_compliance: bool = False
+
+    # baked voxel SDFs of GEO_MESH shapes (bake_mesh_sdf); -1 = no grid
+    shape_sdf_id: Optional[np.ndarray] = None     # [G] int
+    sdf_grid: Optional[np.ndarray] = None         # [M, R, R, R]
+    sdf_lower: Optional[np.ndarray] = None        # [M, 3]
+    sdf_spacing: Optional[np.ndarray] = None      # [M, 3]
+
     @property
     def link_count(self):
         return self.topology.link_count
@@ -267,17 +476,39 @@ class Model:
     def dof_count(self):
         return self.topology.dof_count
 
-    def state(self) -> "State":
-        """Fresh State at the builder's initial coordinates."""
-        return State(joint_q=self.joint_q_init, joint_qd=self.joint_qd_init)
+    @property
+    def particle_count(self):
+        return (0 if self.particle_q_init is None
+                else self.particle_q_init.shape[0])
+
+    def state(self, num_envs=None, device=None) -> "State":
+        """Fresh State at the builder's initial coordinates: numpy arrays of
+        one env, or, given ``num_envs``, float32 tensors with a leading env
+        axis of that size (what the simulators take) on ``device``: CUDA
+        unless the caller names one (``default_device``)."""
+        arrays = (self.joint_q_init, self.joint_qd_init,
+                  self.particle_q_init, self.particle_qd_init)
+        if num_envs is not None:
+            device = default_device(device)
+            arrays = tuple(
+                None if a is None else torch.as_tensor(
+                    a, dtype=torch.float32, device=device).expand(
+                        (num_envs,) + a.shape).clone()
+                for a in arrays)
+        return State(*arrays)
 
 
 @dataclass(frozen=True)
 class State:
-    """Minimal time-varying simulation state (single env)."""
+    """Minimal time-varying simulation state: joint coordinates and
+    velocities and particle positions and velocities; numpy arrays of one
+    env from ``Model.state()``, tensors with a leading env axis in the
+    simulators."""
 
-    joint_q: np.ndarray    # [C]
-    joint_qd: np.ndarray   # [D]
+    joint_q: Optional[np.ndarray] = None      # [C]
+    joint_qd: Optional[np.ndarray] = None     # [D]
+    particle_q: Optional[np.ndarray] = None   # [P, 3]
+    particle_qd: Optional[np.ndarray] = None  # [P, 3]
 
 
 class ModelBuilder:
@@ -285,6 +516,11 @@ class ModelBuilder:
     ``finalize()``."""
 
     def __init__(self):
+        # particles
+        self.particle_q: List = []
+        self.particle_qd: List = []
+        self.particle_mass: List = []
+
         # shapes
         self.shape_transform: List = []
         self.shape_body: List = []
@@ -292,6 +528,26 @@ class ModelBuilder:
         self.shape_geo_scale: List = []
         self.shape_geo_src: List = []
         self.shape_materials: List = []
+        # voxel-SDF bake resolution for GEO_MESH soft contacts (bake_mesh_sdf)
+        self.sdf_resolution: int = 24
+
+        # springs
+        self.spring_indices: List = []
+        self.spring_rest_length: List = []
+        self.spring_stiffness: List = []
+        self.spring_damping: List = []
+        self.spring_control: List = []
+
+        # triangles / edges / tets
+        self.tri_indices: List = []
+        self.tri_poses: List = []
+        self.tri_activations: List = []
+        self.edge_indices: List = []
+        self.edge_rest_angle: List = []
+        self.tet_indices: List = []
+        self.tet_poses: List = []
+        self.tet_activations: List = []
+        self.tet_materials: List = []
 
         # muscles
         self.muscle_start: List = []
@@ -429,6 +685,10 @@ class ModelBuilder:
                           radius=1.0, half_width=0.5, density=1000.0, ke=1.0e5, kd=1000.0, kf=1000.0, mu=0.5):
         self._add_shape(body, pos, rot, GEO_CAPSULE, (radius, half_width, 0.0, 0.0), None, density, ke, kd, kf, mu)
 
+    def add_shape_mesh(self, body, pos=(0.0, 0.0, 0.0), rot=(0.0, 0.0, 0.0, 1.0), mesh=None,
+                       scale=(1.0, 1.0, 1.0), density=1000.0, ke=1.0e5, kd=1000.0, kf=1000.0, mu=0.5):
+        self._add_shape(body, pos, rot, GEO_MESH, (scale[0], scale[1], scale[2], 0.0), mesh, density, ke, kd, kf, mu)
+
     def _add_shape(self, body, pos, rot, type, scale, src, density, ke, kd, kf, mu):
         self.shape_body.append(int(body))
         self.shape_transform.append(np_transform(pos, rot))
@@ -438,6 +698,221 @@ class ModelBuilder:
         self.shape_materials.append((ke, kd, kf, mu))
         m, I = self._compute_shape_mass(type, scale, src, density)
         self._update_body_mass(body, m, I, np.asarray(pos, dtype=np.float64), np.asarray(rot, dtype=np.float64))
+
+    # -- particles / deformables --------------------------------------------
+
+    def add_particle(self, pos, vel, mass) -> int:
+        self.particle_q.append(np.asarray(pos, dtype=np.float64))
+        self.particle_qd.append(np.asarray(vel, dtype=np.float64))
+        self.particle_mass.append(float(mass))
+        return len(self.particle_q) - 1
+
+    def add_spring(self, i, j, ke, kd, control):
+        self.spring_indices.extend([int(i), int(j)])
+        p = np.asarray(self.particle_q[i])
+        q = np.asarray(self.particle_q[j])
+        self.spring_rest_length.append(float(np.linalg.norm(p - q)))
+        self.spring_stiffness.append(ke)
+        self.spring_damping.append(kd)
+        self.spring_control.append(control)
+
+    def add_triangle(self, i, j, k) -> float:
+        """FEM triangle; computes rest pose like model.py add_triangle."""
+        p, q, r = (np.asarray(self.particle_q[x]) for x in (i, j, k))
+        qp = q - p
+        rp = r - p
+        # local basis: x along qp, z normal
+        n = np.cross(qp, rp)
+        area = 0.5 * np.linalg.norm(n)
+        e1 = qp / np.linalg.norm(qp)
+        e3 = n / np.linalg.norm(n)
+        e2 = np.cross(e3, e1)
+        D = np.array([[np.dot(e1, qp), np.dot(e1, rp)], [np.dot(e2, qp), np.dot(e2, rp)]])
+        inv_D = np.linalg.inv(D)
+        self.tri_indices.append((int(i), int(j), int(k)))
+        self.tri_poses.append(inv_D)
+        self.tri_activations.append(0.0)
+        return area
+
+    def add_edge(self, i, j, k, l, rest=None):
+        """Bending edge between tris (i,k,l) and (j,l,k) (Bridson). rest angle
+        computed from the initial configuration when not given."""
+        if rest is None:
+            x1, x2, x3, x4 = (np.asarray(self.particle_q[x]) for x in (i, j, k, l))
+            n1 = np.cross(x3 - x1, x4 - x1)
+            n2 = np.cross(x4 - x2, x3 - x2)
+            e = x4 - x3
+            def _norm(v):
+                return v / max(np.linalg.norm(v), 1e-12)
+            n1, n2 = _norm(n1), _norm(n2)
+            e_hat = _norm(e)
+            cos_theta = np.dot(n1, n2)
+            sin_theta = np.dot(np.cross(n1, n2), e_hat)
+            rest = math.atan2(sin_theta, cos_theta)
+        self.edge_indices.append((int(i), int(j), int(k), int(l)))
+        self.edge_rest_angle.append(float(rest))
+
+    def add_tetrahedron(self, i, j, k, l, k_mu=1.0e3, k_lambda=1.0e3, k_damp=0.0) -> float:
+        p, q, r, s = (np.asarray(self.particle_q[x]) for x in (i, j, k, l))
+        D = np.stack([q - p, r - p, s - p], axis=1)
+        volume = np.linalg.det(D) / 6.0
+        if volume <= 0.0:
+            raise ValueError("inverted tetrahedral element")
+        self.tet_indices.append((int(i), int(j), int(k), int(l)))
+        self.tet_poses.append(np.linalg.inv(D))
+        self.tet_activations.append(0.0)
+        self.tet_materials.append((k_mu, k_lambda, k_damp))
+        return float(volume)
+
+    def add_cloth_grid(self, pos, rot, vel, dim_x, dim_y, cell_x, cell_y, mass,
+                       reverse_winding=False, fix_left=False, fix_right=False,
+                       fix_top=False, fix_bottom=False):
+        """Regular cloth grid: particles + FEM triangles + bending hinges
+        derived from mesh adjacency (the reference's add_cloth_grid,
+        its triangulation and winding conventions included)."""
+        start_vertex = len(self.particle_q)
+        start_tri = len(self.tri_indices)
+
+        def grid_index(x, y):
+            return start_vertex + y * (dim_x + 1) + x
+
+        for y in range(dim_y + 1):
+            for x in range(dim_x + 1):
+                local = np.array([x * cell_x, y * cell_y, 0.0])
+                world = np_quat_rotate(rot, local) + np.asarray(pos, dtype=np.float64)
+                m = mass
+                if (x == 0 and fix_left) or (x == dim_x and fix_right) or \
+                   (y == 0 and fix_bottom) or (y == dim_y and fix_top):
+                    m = 0.0
+                self.add_particle(world, vel, m)
+
+                if x > 0 and y > 0:
+                    if reverse_winding:
+                        self.add_triangle(grid_index(x - 1, y - 1),
+                                          grid_index(x, y - 1),
+                                          grid_index(x, y))
+                        self.add_triangle(grid_index(x - 1, y - 1),
+                                          grid_index(x, y),
+                                          grid_index(x - 1, y))
+                    else:
+                        self.add_triangle(grid_index(x - 1, y - 1),
+                                          grid_index(x, y - 1),
+                                          grid_index(x - 1, y))
+                        self.add_triangle(grid_index(x, y - 1),
+                                          grid_index(x, y),
+                                          grid_index(x - 1, y))
+
+        # bending hinges from triangle adjacency (util.py MeshAdjacency)
+        self._add_adjacency_edges(self.tri_indices[start_tri:])
+
+    def _add_adjacency_edges(self, tris):
+        """One bending hinge per interior edge: add_edge(o0, o1, v0, v1)."""
+        edges = {}
+        for f, tri in enumerate(tris):
+            for (i0, i1, o) in ((tri[0], tri[1], tri[2]),
+                                (tri[1], tri[2], tri[0]),
+                                (tri[2], tri[0], tri[1])):
+                key = (min(i0, i1), max(i0, i1))
+                if key in edges:
+                    e = edges[key]
+                    if e[3] == -1:
+                        edges[key] = (e[0], e[1], e[2], o)
+                else:
+                    edges[key] = (i0, i1, o, -1)
+        for (v0, v1, o0, o1) in edges.values():
+            if o1 == -1:
+                continue  # open boundary edge
+            self.add_edge(o0, o1, v0, v1)
+
+    def add_cloth_mesh(self, pos, rot, scale, vel, vertices, indices, density):
+        """Cloth from a 2-manifold triangle mesh (model.py add_cloth_mesh):
+        one FEM triangle per face (mass from area*density lumped to
+        vertices), one bending hinge per interior edge."""
+        start_vertex = len(self.particle_q)
+        start_tri = len(self.tri_indices)
+        tris = np.asarray(indices, dtype=np.int32).reshape(-1, 3)
+
+        for v in vertices:
+            world = np_quat_rotate(rot, np.asarray(v, dtype=np.float64) * scale)
+            self.add_particle(world + np.asarray(pos, dtype=np.float64), vel, 0.0)
+
+        for t in tris:
+            area = self.add_triangle(*(start_vertex + t))
+            # lump the face mass onto its vertices (model.py:1316-1325)
+            for vi in t:
+                self.particle_mass[start_vertex + int(vi)] += density * area / 3.0
+
+        self._add_adjacency_edges(self.tri_indices[start_tri:])
+
+    def add_soft_grid(self, pos, rot, vel, dim_x, dim_y, dim_z,
+                      cell_x, cell_y, cell_z, density,
+                      k_mu=1.0e3, k_lambda=1.0e3, k_damp=0.0,
+                      fix_left=False, fix_right=False, fix_top=False,
+                      fix_bottom=False):
+        """Regular hexahedral soft-body grid, 5 tets per cell with parity-
+        alternating splits + surface triangles (model.py add_soft_grid
+        semantics: each particle carries the full cell mass)."""
+        start_vertex = len(self.particle_q)
+        mass = cell_x * cell_y * cell_z * density
+
+        for z in range(dim_z + 1):
+            for y in range(dim_y + 1):
+                for x in range(dim_x + 1):
+                    local = np.array([x * cell_x, y * cell_y, z * cell_z])
+                    world = np_quat_rotate(rot, local) + np.asarray(pos, dtype=np.float64)
+                    m = mass
+                    if (fix_left and x == 0) or (fix_right and x == dim_x) or \
+                       (fix_top and y == dim_y) or (fix_bottom and y == 0):
+                        m = 0.0
+                    self.add_particle(world, vel, m)
+
+        faces = {}
+
+        def add_face(i, j, k):
+            key = tuple(sorted((i, j, k)))
+            if key not in faces:
+                faces[key] = (i, j, k)
+            else:
+                del faces[key]
+
+        def add_tet(i, j, k, l):
+            self.add_tetrahedron(i, j, k, l, k_mu, k_lambda, k_damp)
+            add_face(i, k, j)
+            add_face(j, k, l)
+            add_face(i, j, l)
+            add_face(i, l, k)
+
+        def grid_index(x, y, z):
+            return start_vertex + (dim_x + 1) * (dim_y + 1) * z + (dim_x + 1) * y + x
+
+        for z in range(dim_z):
+            for y in range(dim_y):
+                for x in range(dim_x):
+                    v0 = grid_index(x, y, z)
+                    v1 = grid_index(x + 1, y, z)
+                    v2 = grid_index(x + 1, y, z + 1)
+                    v3 = grid_index(x, y, z + 1)
+                    v4 = grid_index(x, y + 1, z)
+                    v5 = grid_index(x + 1, y + 1, z)
+                    v6 = grid_index(x + 1, y + 1, z + 1)
+                    v7 = grid_index(x, y + 1, z + 1)
+
+                    if (x & 1) ^ (y & 1) ^ (z & 1):
+                        add_tet(v0, v1, v4, v3)
+                        add_tet(v2, v3, v6, v1)
+                        add_tet(v5, v4, v1, v6)
+                        add_tet(v7, v6, v3, v4)
+                        add_tet(v4, v1, v6, v3)
+                    else:
+                        add_tet(v1, v2, v5, v0)
+                        add_tet(v3, v0, v7, v2)
+                        add_tet(v4, v7, v0, v5)
+                        add_tet(v6, v5, v2, v7)
+                        add_tet(v5, v2, v7, v0)
+
+        # surface triangles for rendering/contacts
+        for v in faces.values():
+            self.add_triangle(v[0], v[1], v[2])
 
     # -- inertia helpers ----------------------------------------------------
 
@@ -475,6 +950,9 @@ class ModelBuilder:
             return self.compute_box_inertia(density, scale[0] * 2.0, scale[1] * 2.0, scale[2] * 2.0)
         if type == GEO_CAPSULE:
             return self.compute_capsule_inertia(density, scale[0], scale[1] * 2.0)
+        if type == GEO_MESH:
+            s = scale[0]
+            return density * src.mass * s ** 3, density * src.I * s ** 5
         return 0.0, np.zeros((3, 3))
 
     def _update_body_mass(self, i, m, I, p, q):
@@ -521,6 +999,10 @@ class ModelBuilder:
                     for sy in (-1, 1):
                         for sz in (-1, 1):
                             add_contact(self.shape_body[i], X_bs, (sx * e[0], sy * e[1], sz * e[2]), 0.0, i)
+            elif geo_type == GEO_MESH:
+                mesh = self.shape_geo_src[i]
+                for v in mesh.vertices:
+                    add_contact(self.shape_body[i], X_bs, v * np.asarray(scale), 0.0, i)
         return body, point, dist, mat
 
     # -- finalize -----------------------------------------------------------
@@ -568,6 +1050,23 @@ class ModelBuilder:
             a = np.asarray(x, dtype=dtype)
             return None if a.size == 0 else a.reshape(shape)
 
+        # bake a voxel SDF per GEO_MESH shape (scale applied to vertices);
+        # soft contacts are particle-vs-shape, so only scenes with particles
+        # pay the bake
+        sdf_id = np.full(len(self.shape_geo_type), -1, dtype=np.int32)
+        sdf_grids, sdf_lowers, sdf_spacings = [], [], []
+        for i, gt in enumerate(self.shape_geo_type):
+            src = self.shape_geo_src[i]
+            if gt == GEO_MESH and src is not None and len(self.particle_q):
+                sc = np.asarray(self.shape_geo_scale[i], dtype=np.float64)
+                g, glo, gsp = bake_mesh_sdf(
+                    src.vertices * sc, src.indices,
+                    resolution=self.sdf_resolution)
+                sdf_id[i] = len(sdf_grids)
+                sdf_grids.append(g)
+                sdf_lowers.append(glo)
+                sdf_spacings.append(gsp)
+
         return Model(
             topology=topo,
             joint_X_pj=arr(np.stack(self.joint_X_pj) if L else np.zeros((0, 7))),
@@ -595,4 +1094,26 @@ class ModelBuilder:
             shape_geo_type=opt(self.shape_geo_type, (-1,), np.int32),
             shape_geo_scale=opt(self.shape_geo_scale, (-1, 3)),
             shape_materials=opt(self.shape_materials, (-1, 4)),
+            particle_q_init=opt(self.particle_q, (-1, 3)),
+            particle_qd_init=opt(self.particle_qd, (-1, 3)),
+            particle_inv_mass=opt(
+                [1.0 / m if m > 0.0 else 0.0 for m in self.particle_mass],
+                (-1,)),
+            spring_indices=opt(self.spring_indices, (-1, 2), np.int32),
+            spring_rest_length=opt(self.spring_rest_length, (-1,)),
+            spring_stiffness=opt(self.spring_stiffness, (-1,)),
+            spring_damping=opt(self.spring_damping, (-1,)),
+            tri_indices=opt(self.tri_indices, (-1, 3), np.int32),
+            tri_poses=opt(self.tri_poses, (-1, 2, 2)),
+            tri_activations=opt(self.tri_activations, (-1,)),
+            edge_indices=opt(self.edge_indices, (-1, 4), np.int32),
+            edge_rest_angle=opt(self.edge_rest_angle, (-1,)),
+            tet_indices=opt(self.tet_indices, (-1, 4), np.int32),
+            tet_poses=opt(self.tet_poses, (-1, 3, 3)),
+            tet_activations=opt(self.tet_activations, (-1,)),
+            tet_materials=opt(self.tet_materials, (-1, 3)),
+            shape_sdf_id=opt(sdf_id, (-1,), np.int32),
+            sdf_grid=np.stack(sdf_grids) if sdf_grids else None,
+            sdf_lower=np.stack(sdf_lowers) if sdf_lowers else None,
+            sdf_spacing=np.stack(sdf_spacings) if sdf_spacings else None,
         )

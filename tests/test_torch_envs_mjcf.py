@@ -43,6 +43,7 @@ from diffrl_tpu_torch.sim import articulation_lb as tlb
 from diffrl_tpu_torch.sim import substep_kernels as sk
 from diffrl_tpu_torch.utils.convert import load_params
 
+from _torch_scenes import assert_models_equal
 from _torch_mjcf import SUBSTEPS, contact_inputs, envs
 from test_torch_substep import assert_table_invariants
 
@@ -60,18 +61,8 @@ def test_model_fields_match_jax(name):
                        os.path.join(t, ASSETS[name]), shallow=False)
     je, te = envs(name, 2)
     jm, tm = je.model, te.model
-    assert dataclasses.asdict(tm.topology) == dataclasses.asdict(jm.topology)
-    assert tm.ground == jm.ground
-    for f in dataclasses.fields(tm):
-        if f.name in ("topology", "ground"):
-            continue
-        a, b = getattr(tm, f.name), getattr(jm, f.name)
-        if a is None:
-            assert b is None, f.name
-            continue
-        b = np.asarray(b)
-        assert a.shape == b.shape and a.dtype == b.dtype, f.name
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-7, err_msg=f.name)
+    # every field: topology and scalars exactly, arrays to atol
+    assert_models_equal(tm, jm, 1e-7)
     jp, tp = jlb._plan_for(jm), tlb._plan_for(tm, "cpu")
     for key in ("order", "parent_row", "subtree", "dof_perm", "coord_perm",
                 "anc_pair", "contact_rows"):

@@ -21,7 +21,8 @@ the batched hooks, the registry and the SHAC networks.
 - the registry and sizes (CartPole 5 obs / 1 action; SNU Humanoid 53 obs
   / 152 muscle actions, or 71 / 18 with torques);
 - the mesh reader against JAX's on an OBJ and an STL file, and the URDF
-  importer's refusal of mesh colliders;
+  importer's mesh collider read through it (tests/test_torch_builder.py
+  holds the collider's Model against JAX's);
 - SHAC from examples/cfg/shac/{cartpole_swing_up,snu_humanoid}.yaml:
   actor 5-64-64-1 and 53-512-256-152, critic 5-64-64-1 and 53-256-256-1,
   ELU with LayerNorm on the hidden layers as the JAX package builds them;
@@ -29,7 +30,6 @@ the batched hooks, the registry and the SHAC networks.
   utils/convert.py) at rtol/atol 1e-5.
 """
 
-import dataclasses
 import filecmp
 import os
 
@@ -52,9 +52,11 @@ from diffrl_tpu_torch.sim import articulation_lb as tlb
 from diffrl_tpu_torch.sim import substep_kernels as sk
 from diffrl_tpu_torch.sim.importers import meshio as tmeshio
 from diffrl_tpu_torch.sim.importers.urdf import urdf_load
-from diffrl_tpu_torch.sim.model import ModelBuilder, np_transform_identity
+from diffrl_tpu_torch.sim.model import GEO_MESH, ModelBuilder, \
+    np_transform_identity
 from diffrl_tpu_torch.utils.convert import load_params
 
+from _torch_scenes import assert_models_equal
 from test_torch_substep import _header_tables, assert_table_invariants
 
 HERE = os.path.dirname(__file__)
@@ -79,18 +81,8 @@ def test_model_fields_match_jax(name):
                            shallow=False), f
     je, te = envs(name, 2)
     jm, tm = je.model, te.model
-    assert dataclasses.asdict(tm.topology) == dataclasses.asdict(jm.topology)
-    assert tm.ground == jm.ground
-    for f in dataclasses.fields(tm):
-        if f.name in ("topology", "ground"):
-            continue
-        a, b = getattr(tm, f.name), getattr(jm, f.name)
-        if a is None:
-            assert b is None, f.name
-            continue
-        b = np.asarray(b)
-        assert a.shape == b.shape and a.dtype == b.dtype, f.name
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-7, err_msg=f.name)
+    # every field: topology and scalars exactly, arrays to atol
+    assert_models_equal(tm, jm, 1e-7)
     jp, tp = jlb._plan_for(jm), tlb._plan_for(tm, "cpu")
     for key in ("order", "parent_row", "subtree", "dof_perm", "coord_perm",
                 "anc_pair", "contact_rows", "seg_row0", "seg_row1", "seg_m"):
@@ -258,8 +250,11 @@ def test_mesh_reader_matches_jax(tmp_path):
     urdf.write_text(
         '<robot name="m"><link name="base"><collision><geometry>'
         f'<mesh filename="{obj}"/></geometry></collision></link></robot>')
-    with pytest.raises(NotImplementedError, match="mesh"):
-        urdf_load(ModelBuilder(), str(urdf), np_transform_identity())
+    b = ModelBuilder()
+    urdf_load(b, str(urdf), np_transform_identity())
+    assert b.shape_geo_type == [GEO_MESH]
+    np.testing.assert_array_equal(b.shape_geo_src[0].vertices,
+                                  jmeshio.load_mesh(str(obj))[0])
 
 
 @pytest.mark.parametrize("name,cfg_file,dims", [

@@ -22,6 +22,8 @@ from diffrl_tpu.sim import articulation_lb as jlb
 import diffrl_tpu_torch.envs as tenvs
 from diffrl_tpu_torch.sim import articulation_lb as tlb
 
+from _torch_scenes import assert_models_equal
+
 ATOL = 1e-7
 
 
@@ -43,19 +45,8 @@ def test_asset_copy_is_identical():
 
 def test_ant_model_fields(ant_models):
     jm, tm = ant_models
-    assert dataclasses.asdict(tm.topology) == dataclasses.asdict(jm.topology)
-    assert tm.ground == jm.ground
-    for f in dataclasses.fields(tm):
-        if f.name in ("topology", "ground"):
-            continue
-        a, b = getattr(tm, f.name), getattr(jm, f.name)
-        if a is None:
-            assert b is None, f.name
-            continue
-        b = np.asarray(b)
-        assert a.shape == b.shape, f.name
-        assert a.dtype == b.dtype, f.name
-        np.testing.assert_allclose(a, b, rtol=0, atol=ATOL, err_msg=f.name)
+    # every field: topology and scalars exactly, arrays to atol
+    assert_models_equal(tm, jm, ATOL)
 
 
 def test_ant_plan_tables(ant_models):
