@@ -92,8 +92,18 @@ raises and the script exits non-zero:
               (joint angles perturbed but for env 0) for 40 steps, env 0
               against the E = 1 run, and its gradient finite.
    backward-- Ant at E = 4096 from the settled state: one env step's
-              gradient with sim_backward "lb" (K1, K2, replay) against
-              "remat" (simulate) and float64, by testing.py's rules.
+              gradient on each reverse pass of BACKWARDS, "lb" (K1, K2,
+              replay), "lb_ad" (autograd through K1/K2 nodes and the
+              refresh, no replay), "pallas" (the JAX package's name for
+              the kernel path: the replay with K1 and K2), "manual" (the
+              hand-written pass over the plain substeps) and "remat"
+              (simulate), each against "remat" and float64 by
+              testing.py's rules; per pass the largest per-env error
+              against float64, K1's and K2's launches per step (15 and
+              15 on the kernel paths, 0 on the others), and the
+              simulator's forward + backward of one step: device time (one
+              CUDA graph), time per call, peak memory ("pallas" runs the
+              simulator of "lb", whose times it reports).
    timing  -- per engine scene and Ant's remat simulate: one env step's
               forward and forward + backward, device time (one CUDA graph
               of the call) and per call, peak memory, particle-substeps
@@ -114,7 +124,14 @@ raises and the script exits non-zero:
               ppo/ant.yaml (2048 x 32, minibatches of 16,384, 5
               mini-epochs: K1 480, K2 0); SAC from sac/ant.yaml (128 x 128,
               batch 4,096, ring of 999,936; num_seed_steps cut from 5 to
-              1, then one learning epoch: K1 1,920 and K2 0 per epoch).
+              1, then one learning epoch: K1 1,920 and K2 0 per epoch);
+              SHAC Ant with diff_env.sim_backward lb_ad (4096 x 32, 1
+              epoch: K1 480, K2 480); BPTT CartPole with algo lbfgs
+              (optax's L-BFGS and zoom line search, 64 envs, steps_num
+              cut from 240 to 32, 2 epochs: K1 and K2 (1 + probes) x 96
+              per epoch, the probes printed); PPO Ant with an LSTM of 256
+              units after its MLP (the builder path, 2048 x 32, seq_length
+              4: K1 480, K2 0).
               Per epoch: seconds, env-steps/s, peak memory, host syncs
               and launches; finite statistics, a changed policy. After
               each path's epochs, one launch of K1 and of K2 at the
@@ -122,6 +139,12 @@ raises and the script exits non-zero:
               the plain versions and float64 as in phases 3-4. One more
               epoch of SHAC Ant, Humanoid and SNU Humanoid, BPTT Ant and
               PPO Ant split into its phases.
+   bandit  -- PPO's builder path on the contextual bandit of
+              tests/test_builders.py (ToyBandit) at E = 4096: a
+              categorical head on the one-hot observation, a conv trunk on
+              the 6 x 6 image and a GRU, each trained with that test's
+              config and held to its threshold on the deterministic
+              evaluation reward (6, 4 and 2; random play earns 2).
 8. timing  -- per model, device time per launch of both kernels (CUDA
               events with the host queued ahead), per-call times, the plain
               versions as CUDA graphs; for Ant, Humanoid and SNU Humanoid
@@ -130,7 +153,9 @@ raises and the script exits non-zero:
 
 Before the last line it prints the nvidia-smi line and one JSON line with
 each kernel's launches per model (over its SHAC training path's epochs,
-and over each path's epochs in launches_by_path), errors, times, bound,
+and over each training path's epochs, by its TRAINERS label, and for Ant
+per env step gradient on each reverse pass in launches_by_path), errors,
+times, bound,
 threads per env and warps per SM; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -267,7 +292,36 @@ TRAINERS = {
     "SAC Ant": dict(algo="sac", model="Ant", cfg="ant.yaml",
                     config=dict(num_seed_steps=1), epochs=2, split=False,
                     launches=(1920, 0)),
+    # SHAC on the residual reverse pass: each cached substep an autograd
+    # node of K1 and K2, no replay
+    "SHAC Ant lb_ad": dict(algo="shac", model="Ant", cfg="ant.yaml",
+                           config=dict(num_actors=E, steps_num=TRAIN_STEPS),
+                           diff_env=dict(sim_backward="lb_ad"), epochs=1,
+                           split=False, launches=(480, 480)),
+    # optax's L-BFGS: every line-search probe re-runs the window forward
+    # and backward, so K1 and K2 launch (1 + probes) x steps x (mm - 1)
+    # times per epoch; steps_num cut from 240 to 32 to keep the row near a
+    # minute (a 240-step window took 26.8 s forward and backward on the
+    # card, and a search may take 8 probes)
+    "BPTT CartPole L-BFGS": dict(algo="bptt", model="CartPoleSwingUp",
+                                 cfg="cartpole_swing_up.yaml",
+                                 config=dict(steps_num=32),
+                                 algo_name="lbfgs", epochs=2, split=False,
+                                 launches=(96, 96), per_probe=True),
+    # the builder path: an LSTM of 256 units after ppo/ant.yaml's MLP,
+    # minibatches of 4-step chunks
+    "PPO Ant LSTM": dict(algo="ppo", model="Ant", cfg="ant.yaml",
+                         config=dict(seq_length=4),
+                         network=dict(rnn=dict(name="lstm", units=256,
+                                               layers=1)),
+                         epochs=1, split=False, launches=(480, 0)),
 }
+# the env's reverse passes (envs/base.DiffEnv): the replay pass through K1
+# and K2 ("lb", and "pallas", the name of the JAX package's Pallas path,
+# which takes it too), autograd through K1/K2 nodes and the refresh
+# ("lb_ad"), the hand-written pass over the plain substeps ("manual") and
+# checkpointed plain substeps ("remat")
+BACKWARDS = ("lb", "lb_ad", "pallas", "manual", "remat")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -773,6 +827,106 @@ def host_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in seen)
 
 
+class ToyBandit:
+    """The contextual bandit of tests/test_builders.py (_ToyDiscreteEnv),
+    in torch: each env's observation one-hot encodes which of 4 actions
+    pays 1 (else 0) for 8 steps; then a new target. With ``image`` the
+    one-hot is painted into the quadrants of a 6 x 6 x 1 image (NHWC).
+    Targets are drawn from the env's generator. A random policy earns 2
+    per episode, the best 8."""
+
+    num_obs = 4
+    num_acts = 4
+    episode_length = 8
+
+    def __init__(self, num_envs=16, image=False, seed=0, device="cuda"):
+        self.num_envs = num_envs
+        self.image = image
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        if image:
+            self.obs_shape = (6, 6, 1)
+
+    def _targets(self):
+        return torch.randint(0, self.num_acts, (self.num_envs,),
+                             generator=self.generator, device=self.device)
+
+    def reset(self):
+        return dict(target=self._targets(),
+                    progress=torch.zeros(self.num_envs, dtype=torch.int32,
+                                         device=self.device))
+
+    def batch_observations(self, state):
+        onehot = torch.nn.functional.one_hot(
+            state["target"], self.num_acts).to(torch.float32)
+        if not self.image:
+            return onehot
+        quads = onehot.reshape(self.num_envs, 2, 1, 2, 1).expand(
+            self.num_envs, 2, 3, 2, 3)
+        return quads.reshape(self.num_envs, 6, 6, 1)
+
+    def step(self, state, actions):
+        rew = (actions == state["target"]).to(torch.float32)
+        progress = state["progress"] + 1
+        done = progress >= self.episode_length
+        state = dict(target=torch.where(done, self._targets(),
+                                        state["target"]),
+                     progress=torch.where(done, torch.zeros_like(progress),
+                                          progress))
+        return state, self.batch_observations(state), rew, done, {}
+
+
+def toy_ppo_cfg(network, num_envs=16, steps=8, epochs=30, **config_extra):
+    """tests/test_builders.py's _ppo_cfg: PPO on ToyBandit."""
+    config = dict(
+        name="toy", num_actors=num_envs, steps_num=steps,
+        minibatch_size=num_envs * steps // 2, mini_epochs=2,
+        learning_rate=5e-3, lr_schedule="constant", gamma=0.9, tau=0.95,
+        normalize_input=False, normalize_value=False, save_frequency=0,
+        max_epochs=epochs, **config_extra)
+    return {"params": {"diff_env": {"name": "unused"}, "network": network,
+                       "config": config,
+                       "general": {"logdir": tempfile.mkdtemp(
+                           prefix="chip_smoke_toy_"), "seed": 0}}}
+
+
+# the bandit smokes of tests/test_builders.py: the network, the envs and
+# epochs there, and the least deterministic evaluation reward it holds the
+# JAX trainer to
+BANDITS = {
+    "discrete": ({"mlp": {"units": [32]}, "space": {"discrete": {}}},
+                 dict(num_envs=16, epochs=30), False, 6.0),
+    "cnn": ({"cnn": {"convs": [{"filters": 4, "kernel_size": 3,
+                                "strides": 2}], "activation": "relu"},
+             "mlp": {"units": [16]}, "space": {"discrete": {}}},
+            dict(num_envs=8, epochs=25), True, 4.0),
+    "gru": ({"mlp": {"units": [16]}, "rnn": {"name": "gru", "units": 8},
+             "space": {"discrete": {}}},
+            dict(num_envs=8, epochs=10, seq_length=4), False, 2.0),
+}
+
+
+def bandit(kind, device, num_envs=None):
+    """PPO with BANDITS[kind]'s network trained on ToyBandit (at
+    ``num_envs`` envs when given); returns (trainer, deterministic
+    evaluation reward, seconds). Raises below the threshold."""
+    from diffrl_tpu_torch.algorithms import PPO
+
+    net, kw, image, least = BANDITS[kind]
+    kw = dict(kw, num_envs=num_envs or kw["num_envs"])
+    cfg = toy_ppo_cfg(net, **kw)
+    t0 = time.perf_counter()
+    ppo = PPO(cfg, env=ToyBandit(kw["num_envs"], image=image, device=device))
+    ppo.train()
+    rew, _ = ppo.evaluate_policy(1, deterministic=True)
+    shutil.rmtree(cfg["params"]["general"]["logdir"])
+    if not rew > least:
+        raise RuntimeError(f"PPO {kind} on the bandit: evaluation reward "
+                           f"{rew} (JAX's test holds {least}; random 2)")
+    return ppo, rew, time.perf_counter() - t0
+
+
 def trainer_params(trainer):
     for attr in ("actor", "network"):
         if hasattr(trainer, attr):
@@ -799,6 +953,14 @@ def train(label, dev, card, gen):
     config = cfg["params"]["config"]
     changed = [f"{k} {config.get(k)} -> {v}"
                for k, v in spec["config"].items() if config.get(k) != v]
+    for key in ("diff_env", "network"):
+        for k, v in spec.get(key, {}).items():
+            changed.append(f"{key}.{k} {cfg['params'][key].get(k)} -> {v}")
+            cfg["params"][key][k] = v
+    if "algo_name" in spec:
+        changed.append(f"algo.name {cfg['params']['algo']['name']} -> "
+                       f"{spec['algo_name']}")
+        cfg["params"]["algo"]["name"] = spec["algo_name"]
     logdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     cfg["params"]["general"] = {"logdir": logdir, "seed": 0}
     config.update(max_epochs=spec["epochs"], save_interval=0,
@@ -820,7 +982,9 @@ def train(label, dev, card, gen):
             s=time.perf_counter() - t,
             gb=torch.cuda.max_memory_allocated() / 1e9, syncs=syncs,
             launches=(sk.substep_forward.launches - n[0],
-                      sk.substep_vjp.launches - n[1])))
+                      sk.substep_vjp.launches - n[1]),
+            probes=getattr(getattr(trainer, "actor_opt", None),
+                           "linesearch_steps", None)))
         return out
 
     trainer.train_epoch = recorded
@@ -829,11 +993,13 @@ def train(label, dev, card, gen):
     launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
     trainer.train_epoch = train_epoch
     shutil.rmtree(logdir)
-    if any(r["launches"] != spec["launches"] for r in records) or \
-            launches != tuple(spec["epochs"] * n for n in spec["launches"]):
+    expected = [tuple((1 + r["probes"] if spec.get("per_probe") else 1) * n
+                      for n in spec["launches"]) for r in records]
+    if [r["launches"] for r in records] != expected or launches != tuple(
+            map(sum, zip(*expected))):
         raise RuntimeError(f"{label} launched (substep_forward, substep_vjp) "
                            f"{[r['launches'] for r in records]} per epoch, "
-                           f"expected {spec['launches']}")
+                           f"expected {expected}")
     stats = {k: [v for _, _, v in trainer.scalars[k]]
              for k in ("actor_loss", "value_loss", "loss", "a_loss",
                        "c_loss", "kl", "lr", "alpha") if k in trainer.scalars}
@@ -858,6 +1024,8 @@ def train(label, dev, card, gen):
               f"{r['s']:.3f} s, {E_ * H_ / r['s']:.1f} env-steps/s, peak "
               f"{r['gb']:.3f} GB, {r['syncs']} host syncs in train_epoch "
               f"(+1 for its statistics), launches {r['launches']}"
+              + (f", {r['probes']} line-search probes" if spec.get(
+                  "per_probe") else "")
               for r in records) + "; " + ", ".join(
               f"{k} {v[-1]:.5g}" for k, v in stats.items())
           + f" | {card}")
@@ -1394,30 +1562,79 @@ def env_step_grad(env, s1, acts, w, dtype):
         return torch.autograd.grad(loss, leaves)
 
 
-def check_backwards(env_lb, env_remat, s1, acts, gen):
-    """Phase 5: one env step's gradient with sim_backward "lb" (K1/K2 and
-    the replay) and "remat" (simulate), from the same settled state and
-    actions, held by ``hold``'s rules (the float64 answer from the remat
-    env run in float64). Returns (hold's results per input, the largest
-    per-env error of lb and of remat against float64)."""
+def sim_grad(env, s1, ja, ma, w_q, w_qd):
+    """d/d(joint_q, joint_qd, joint_act) of <w_q, q'> + <w_qd, qd'> over
+    one step of the env's simulator on its reverse pass (env.simulate, what
+    env.step runs between its controls and its observations)."""
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (s1.joint_q, s1.joint_qd, ja)]
+    with torch.enable_grad():
+        q, qd = env.simulate(*leaves, ma)
+        return torch.autograd.grad(
+            torch.sum(q * w_q) + torch.sum(qd * w_qd), leaves)
+
+
+def check_backwards(envs_, s1, acts, gen, card):
+    """Phase 5: one env step's gradient on each reverse pass of BACKWARDS
+    (envs_[name] an Ant env on it, at E), from the same settled state and
+    actions, each held by ``hold``'s rules against the float64 answer of
+    the remat env run in float64 (the float32 remat gradient as the plain
+    path); then per pass, the simulator's forward + backward alone
+    (sim_grad): device ms (one CUDA graph of the call), ms per call, peak
+    memory and K1's and K2's launches per call ("pallas" runs lb's
+    simulator, so it is not timed again). Returns {pass: (largest
+    per-env error against float64, device ms, per-call ms, peak GB,
+    launches)} and hold's summaries."""
+    from diffrl_tpu_torch.sim import substep_kernels as sk
     from diffrl_tpu_torch.testing import env_errors
 
-    w = torch.randn((acts.shape[0], env_lb.num_obs), generator=gen,
+    w = torch.randn((acts.shape[0], envs_["lb"].num_obs), generator=gen,
                     device=acts.device)
-    out = [env_step_grad(env, s1, acts, w, dtype)
-           for env, dtype in ((env_lb, torch.float32),
-                              (env_remat, torch.float32),
-                              (env_remat, torch.float64))]
+    grads = {b: env_step_grad(envs_[b], s1, acts, w, torch.float32)
+             for b in BACKWARDS}
+    exact = env_step_grad(envs_["remat"], s1, acts, w, torch.float64)
     torch.cuda.synchronize()
-    res = [hold("Ant", f"env step grad {lab} lb vs remat", a.T, b.T, c.T,
-                1e-3, 1e-4, whole_step=True)
-           for lab, a, b, c in zip(("dactions", "djoint_q", "djoint_qd"),
-                                   *out)]
-    per_env = max(float(env_errors(a.T, c.T).max())
-                  for a, c in zip(out[0], out[2]))
-    per_env_r = max(float(env_errors(b.T, c.T).max())
-                    for b, c in zip(out[1], out[2]))
-    return res, per_env, per_env_r
+    summaries, out = [], {}
+    for b in BACKWARDS:
+        if b != "remat":
+            summaries += [hold("Ant", f"env step grad {lab} {b} vs remat",
+                               g.T, p.T, x.T, 1e-3, 1e-4, whole_step=True)[1]
+                          for lab, g, p, x in zip(
+                              ("dactions", "djoint_q", "djoint_qd"),
+                              grads[b], grads["remat"], exact)]
+        per_env = max(float(env_errors(g.T, x.T).max())
+                      for g, x in zip(grads[b], exact))
+        env = envs_[b]
+        ja, ma = controls(env, acts)
+        wq = torch.randn(s1.joint_q.shape, generator=gen, device=acts.device)
+        wqd = torch.randn(s1.joint_qd.shape, generator=gen,
+                          device=acts.device)
+        n0 = (sk.substep_forward.launches, sk.substep_vjp.launches)
+        sim_grad(env, s1, ja, ma, wq, wqd)
+        launches = (sk.substep_forward.launches - n0[0],
+                    sk.substep_vjp.launches - n0[1])
+        if b == "pallas":
+            # DiffEnv.simulate runs the same code for "pallas" as for "lb":
+            # its gradient is held above, its times are lb's
+            out[b] = (per_env, *out["lb"][1:4], launches)
+            phase("backward", f"Ant E={E} sim_backward 'pallas': the "
+                  f"simulator of 'lb' (times as there), K1 and K2 launches "
+                  f"per step {launches}; the env step's gradient against "
+                  f"float64: largest per-env error {per_env:.3e} | {card}")
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev_ms, call_ms = timed_ms(
+            lambda: sim_grad(env, s1, ja, ma, wq, wqd), 2)
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        out[b] = (per_env, dev_ms, call_ms, gb, launches)
+        phase("backward", f"Ant E={E} sim_backward {b!r}: one env step's "
+              f"forward + backward of the simulator {dev_ms:.3f} ms device "
+              f"(one CUDA graph), {call_ms:.3f} ms per call, peak "
+              f"{gb:.3f} GB, K1 and K2 launches per step {launches}; the "
+              f"env step's gradient against float64: largest per-env "
+              f"error {per_env:.3e} | {card}")
+    return out, summaries
 
 
 def main() -> int:
@@ -1439,7 +1656,7 @@ def main() -> int:
 
     # 1. device
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     phase("device", f"{card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
@@ -1529,19 +1746,17 @@ def main() -> int:
     cloth = check_cloth(dev, card, gen)
     fem = check_fem(dev, card, gen)
     coupled = check_coupled(dev, card, gen)
-    env_remat = envs.make("Ant", num_envs=E, seed=0, stochastic_init=True,
-                          episode_length=1000, MM_caching_frequency=MM,
-                          device=dev, sim_backward="remat")
     s1, _, acts = checks["Ant"]["step_state"]
-    res, per_env, per_env_r = check_backwards(menvs["Ant"], env_remat, s1,
-                                              acts, gen)
+    back_envs = {b: menvs["Ant"] if b == "lb" else envs.make(
+        "Ant", num_envs=E, seed=0, stochastic_init=True, episode_length=1000,
+        MM_caching_frequency=MM, device=dev, sim_backward=b)
+        for b in BACKWARDS}
+    backwards, res = check_backwards(back_envs, s1, acts, gen, card)
     phase("backward", f"Ant E={E}: one env step's gradient (obs and reward "
-          f"w.r.t. actions, joint_q, joint_qd) with sim_backward 'lb' (K1, "
-          f"K2, replay) vs 'remat' (simulate, checkpointed plain stages), "
-          f"max err {max(e for e, _ in res):.3e}; vs float64 (rtol 1e-3, "
-          f"atol 1e-4): " + "; ".join(t for _, t in res)
-          + f"; largest per-env error vs float64 lb {per_env:.3e}, remat "
-          f"{per_env_r:.3e}")
+          f"w.r.t. actions, joint_q, joint_qd) on each reverse pass vs "
+          f"'remat' (simulate, checkpointed plain stages) and float64 "
+          f"(rtol 1e-3, atol 1e-4): " + "; ".join(res))
+    env_remat = back_envs["remat"]
     torch.cuda.empty_cache()
     time_engine("cloth 60x60", *cloth, CLOTH["substeps"], ("particle_qd",),
                 card, n=1)
@@ -1604,6 +1819,18 @@ def main() -> int:
                   + f"; {syncs} host syncs in it | {card}")
         del trainer
         torch.cuda.empty_cache()
+
+    # 7b. PPO's builder path on the bandit: a discrete head on the one-hot
+    # observation, a conv trunk on the image, a GRU
+    for label, (net, kw, image, least) in BANDITS.items():
+        torch.cuda.synchronize()
+        ppo, rew, sec = bandit(label, dev, num_envs=E)
+        phase("bandit", f"PPO {label} ({', '.join(net)}) on the bandit E={E}"
+              f"{' (6 x 6 image)' if image else ''}, {kw['epochs']} epochs "
+              f"of 8 steps: {sec:.2f} s, deterministic evaluation reward "
+              f"{rew:.3f} (JAX's test holds > {least}; random 2, best 8) | "
+              f"{card}")
+        del ppo
 
     # 8. timings at the main path's shapes: device time with the host
     # queued ahead (median of repeated batches), per-call time as a caller
@@ -1685,9 +1912,11 @@ def main() -> int:
                                else "298"),
                 "launches": runs[f"SHAC {name}"][i],
                 "launches_by_path": {
-                    spec["algo"]: runs[label][i]
-                    for label, spec in TRAINERS.items()
-                    if spec["model"] == name},
+                    **{label: runs[label][i]
+                       for label, spec in TRAINERS.items()
+                       if spec["model"] == name},
+                    **({f"env step grad {b}": backwards[b][4][i]
+                        for b in BACKWARDS} if name == "Ant" else {})},
                 "max_abs_err": checks[name]["err_fwd" if i == 0
                                             else "err_vjp"],
                 **times[name][kname],
@@ -1698,7 +1927,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

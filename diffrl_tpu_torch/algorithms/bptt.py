@@ -12,9 +12,11 @@ the loss is divided by steps_num x num_envs. The gradients are
 nan_to_num-ed and scaled by min(1, grad_norm / (norm + 1e-12)); the
 optimizer is Adam with the config's betas or plain gradient descent
 (``algo: gd``/``sgd``), at optax's ``linear_schedule(lr, 1e-5,
-max_epochs)`` evaluated at the step count. The observations are normalized
-with the statistics frozen at the window's start while a live copy
-updates.
+max_epochs)`` evaluated at the step count, or optax's L-BFGS with its zoom
+line search (``algo: lbfgs``, optim/lbfgs.py), whose every probe re-runs
+the whole window from the same env state, statistics, trackers and
+generator states. The observations are normalized with the statistics
+frozen at the window's start while a live copy updates.
 
 Random draws (actor noise) come from one ``torch.Generator`` on the
 trainer's device, or from the ``noise`` argument of ``rollout`` and
@@ -37,23 +39,21 @@ from .. import envs as env_registry
 from ..models import ActorDeterministicMLP, ActorStochasticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
 from ..utils.tb import TBWriter
-from .shac import clip_and_step, linear_schedule
+from .shac import _global_norm, clip_and_step, linear_schedule
 from .trainer import Trainer
 
 
 def make_optimizer(name: str, params, lr: float, betas):
     """The optimizer ``algo.name`` names: adam (also for the generic
-    "bptt") or gd/sgd. optax's L-BFGS with its zoom line search is not
-    ported."""
+    "bptt"), gd/sgd, or lbfgs (optax.lbfgs(memory_size=10) with
+    scale_by_zoom_linesearch(max_linesearch_steps=8), the JAX trainer's)."""
     name = name.lower()
     if name in ("bptt", "adam"):
         return optim.adam(params, lr, b1=betas[0], b2=betas[1])
     if name in ("gd", "sgd"):
         return optim.gd(params, lr)
     if name == "lbfgs":
-        raise NotImplementedError(
-            "algo lbfgs: optax.lbfgs with a zoom line search is not ported "
-            "(ROADMAP A1; torch.optim.LBFGS is a different algorithm)")
+        return optim.LBFGS(params)
     raise ValueError(f"unknown optimizer '{name}'")
 
 
@@ -64,10 +64,6 @@ class BPTT(Trainer):
         config = params["config"]
         diff_env = params["diff_env"]
         self.device = default_device(device)
-        if diff_env.get("sim_backward") not in (None, "auto", "lb"):
-            raise NotImplementedError(
-                f"sim_backward={diff_env['sim_backward']!r}: the port has "
-                f"the link-batched engine only")
 
         self.seed = general.get("seed", 0)
         self.env = env_registry.make(
@@ -77,6 +73,7 @@ class BPTT(Trainer):
             episode_length=diff_env.get("episode_length", 250),
             stochastic_init=diff_env.get("stochastic_env", False),
             MM_caching_frequency=diff_env.get("MM_caching_frequency", 1),
+            sim_backward=diff_env.get("sim_backward"),
             device=self.device,
         )
         self.num_envs = self.env.num_envs
@@ -108,9 +105,10 @@ class BPTT(Trainer):
         self.stochastic_actor = actor_name == "ActorStochasticMLP"
 
         betas = tuple(config.get("betas", (0.7, 0.95)))
-        self.actor_opt = make_optimizer(
-            params.get("algo", {}).get("name", "adam"),
-            self.actor.parameters(), self.actor_lr, betas)
+        algo_name = params.get("algo", {}).get("name", "adam")
+        self.actor_opt = make_optimizer(algo_name, self.actor.parameters(),
+                                        self.actor_lr, betas)
+        self.is_lbfgs = algo_name.lower() == "lbfgs"
         self.actor_updates = 0
 
         self.obs_rms = (RunningMeanStd((self.num_obs,), device=self.device)
@@ -226,10 +224,67 @@ class BPTT(Trainer):
 
     def train_epoch(self, noise: Optional[torch.Tensor] = None):
         """One BPTT epoch; returns its statistics as device tensors."""
+        if self.is_lbfgs:
+            return self._lbfgs_epoch(noise)
         loss, outs = self.rollout(noise=noise)
         self.actor_opt.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = self.apply_actor_grads()
+        return dict(actor_loss=loss.detach(), gnorm=gnorm, **outs)
+
+    def _window_state(self):
+        """What a window changes: the env state, the trackers, a copy of
+        the live observation statistics and the generators' states (the
+        actor's noise and the env's resets)."""
+        gens = [self.generator, getattr(self.env, "generator", None)]
+        return (self.env_state, self.episode_trackers,
+                self.obs_rms.copy() if self.obs_rms is not None else None,
+                [g.get_state() if g is not None else None for g in gens])
+
+    def _set_window_state(self, saved):
+        self.env_state, self.episode_trackers, rms, gen_states = saved
+        if rms is not None:
+            self.obs_rms.load_state_dict(rms.state_dict())
+        for g, st in zip((self.generator, getattr(self.env, "generator",
+                                                  None)), gen_states):
+            if g is not None:
+                g.set_state(st)
+
+    def _window_grads(self, loss):
+        params = list(self.actor.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params, grads)]
+
+    def _lbfgs_epoch(self, noise):
+        """One L-BFGS update (the JAX trainer's actor_update with optax's
+        lbfgs): the window's gradient, nan_to_num-ed and clipped, gives
+        the direction; each line-search probe re-runs the whole window
+        from the state it started from, with the same draws, and takes its
+        plain gradient. The trainer then carries on from the first run's
+        end."""
+        opt = self.actor_opt
+        start = self._window_state()
+        loss, outs = self.rollout(noise=noise)
+        end = self._window_state()
+        grads = [torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+                 for g in self._window_grads(loss)]
+        gnorm = _global_norm(grads)
+        if self.truncate_grad:
+            scale = torch.clamp(self.grad_norm / (gnorm + 1e-12), max=1.0)
+            grads = [g * scale for g in grads]
+
+        def value_and_grad(w):
+            opt.set_params(w)
+            self._set_window_state(start)
+            with torch.enable_grad():
+                probe, _ = self.rollout(noise=noise)
+                return probe.detach(), opt.flat_grad(
+                    self._window_grads(probe))
+
+        opt.step(loss.detach(), opt.flat_grad(grads), value_and_grad)
+        self._set_window_state(end)
+        self.actor_updates += 1
         return dict(actor_loss=loss.detach(), gnorm=gnorm, **outs)
 
     # ---------------------------------------------------------------- train

@@ -87,10 +87,6 @@ class SHAC(Trainer):
         if config.get("multi_gpu", False):
             raise NotImplementedError(
                 "multi_gpu: the port trains on one card (ROADMAP A7)")
-        if diff_env.get("sim_backward") not in (None, "auto", "lb"):
-            raise NotImplementedError(
-                f"sim_backward={diff_env['sim_backward']!r}: the port has "
-                f"the link-batched engine only")
 
         self.seed = general.get("seed", 0)
         self.env = env_registry.make(
@@ -100,6 +96,7 @@ class SHAC(Trainer):
             episode_length=diff_env.get("episode_length", 250),
             stochastic_init=diff_env.get("stochastic_env", True),
             MM_caching_frequency=diff_env.get("MM_caching_frequency", 1),
+            sim_backward=diff_env.get("sim_backward"),
             device=self.device,
         )
         self.num_envs = self.env.num_envs

@@ -2,6 +2,7 @@
 the JAX package)."""
 
 from .base import DiffEnv, EnvState
+from .wrappers import StatefulEnv
 from .ant import AntEnv
 from .cartpole_swing_up import CartPoleSwingUpEnv
 from .cheetah import CheetahEnv

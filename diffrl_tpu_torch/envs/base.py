@@ -21,10 +21,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .. import default_device
+from .. import config, default_device
 from ..sim.articulation import simulate
 from ..sim.articulation_lb import simulate_batched_lb
 from ..sim.model import Model, State
+
+
+# the reverse passes an env takes (DiffEnv's docstring)
+SIM_BACKWARDS = ("auto", "lb", "pallas", "lb_ad", "remat", "manual")
 
 
 @dataclass
@@ -83,21 +87,31 @@ class DiffEnv:
     owns a ``torch.Generator`` on its device (seeded with ``seed``) that
     draws every initial and reset state.
 
-    ``sim_backward`` chooses the simulator and its reverse pass:
+    ``sim_backward`` chooses the simulator and its reverse pass; every
+    route takes the same ``grad_nan_guard`` on the simulator's inputs:
 
-    - ``"lb"``: the link-batched env-minor engine with the replay reverse
-      pass (``simulate_batched_lb``), whose cached substeps run in the
-      hand-written kernels K1 and K2 on CUDA tensors (their plain versions
-      on the CPU). It computes what the JAX package's ``"lb"`` and
-      ``"pallas"`` compute;
+    - ``"lb"`` and ``"pallas"``: the link-batched env-minor engine with the
+      replay reverse pass (``simulate_batched_lb``), whose cached substeps
+      run in the hand-written kernels K1 and K2 on CUDA tensors (their
+      plain versions on the CPU). The JAX package's ``"pallas"`` runs its
+      Pallas substep kernels, whose ports are K1 and K2: both names take
+      this path;
+    - ``"lb_ad"``: the same engine with ``reverse="residual"``: each
+      cached substep is an autograd node (K1 forward, K2 backward on its
+      saved inputs, no replay), the refresh substep is differentiated by
+      autograd through its plain code;
     - ``"remat"``: ``sim.articulation.simulate``, autograd through
       ``torch.utils.checkpoint`` per substep (``remat_granularity`` cached
       substeps per region), the general path (particles included);
-    - ``None`` or ``"auto"``: the JAX package's rule, ``"lb"`` when the
-      model qualifies (no particles, links, substeps a multiple of
-      MM_caching_frequency), else ``"remat"``;
-    - ``"manual"`` and ``"lb_ad"`` are not ported and raise
-      NotImplementedError (ROADMAP.md A6).
+    - ``"manual"``: ``simulate(backward="manual")``, the hand-written
+      reverse pass over the plain substeps (articulations only);
+    - ``None``: ``config.default_sim_backward``; ``"auto"``: the JAX
+      package's rule, ``"lb"`` when the model qualifies (no particles,
+      links, substeps a multiple of MM_caching_frequency), else
+      ``"remat"``.
+
+    While ``config.verify_fp`` is set, ``step`` raises FloatingPointError
+    on a non-finite output (``config.enable_fp_verification``).
     """
 
     num_obs: int = 0
@@ -129,16 +143,14 @@ class DiffEnv:
             raise ValueError(
                 "sim_substeps must be a multiple of MM_caching_frequency")
         self.remat_granularity = remat_granularity
-        if sim_backward in ("manual", "lb_ad"):
-            raise NotImplementedError(
-                f"sim_backward={sim_backward!r} is not ported (ROADMAP.md "
-                f"A6); use 'lb' or 'remat'")
-        if sim_backward not in (None, "auto", "lb", "remat"):
+        if sim_backward is None:
+            sim_backward = config.default_sim_backward
+        if sim_backward not in SIM_BACKWARDS:
             raise ValueError(f"unknown sim_backward {sim_backward!r}")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.model: Model = self.build_model()
-        if sim_backward in (None, "auto"):
+        if sim_backward == "auto":
             lb_ok = (self.model.particle_count == 0
                      and self.model.link_count > 0)
             sim_backward = "lb" if lb_ok else "remat"
@@ -209,20 +221,8 @@ class DiffEnv:
         joint_act, muscle_act = self.action_to_controls(actions)
 
         # per-entry gradient firewall on the simulator's inputs
-        q, qd, ja, ma = map(grad_nan_guard, (
-            env_state.joint_q, env_state.joint_qd, joint_act, muscle_act))
-        if self.sim_backward == "lb":
-            q, qd = simulate_batched_lb(
-                self.model, q, qd, ja, ma, dt=self.dt,
-                substeps=self.sim_substeps,
-                mass_matrix_freq=self.mm_caching_frequency)
-        else:
-            s = simulate(self.model, State(joint_q=q, joint_qd=qd),
-                         joint_act=ja, muscle_act=ma, dt=self.dt,
-                         substeps=self.sim_substeps,
-                         mass_matrix_freq=self.mm_caching_frequency,
-                         remat_granularity=self.remat_granularity)
-            q, qd = s.joint_q, s.joint_qd
+        q, qd = self.simulate(*map(grad_nan_guard, (
+            env_state.joint_q, env_state.joint_qd, joint_act, muscle_act)))
 
         progress = env_state.progress + 1
 
@@ -262,7 +262,29 @@ class DiffEnv:
             "invalid": invalid,
             "truncation": truncation,
         }
+        if config.verify_fp:
+            config.check_finite(q_new, qd_new, obs_out, rew,
+                                name=f"{type(self).__name__}.step")
         return new_state, obs_out, rew, done, info
+
+    def simulate(self, q, qd, joint_act, muscle_act):
+        """One env step of the simulator on the env's reverse pass
+        (``sim_backward``): joint_q [E, C], joint_qd [E, D], joint_act
+        [E, D] | None, muscle_act [E, M] | None -> (joint_q', joint_qd')."""
+        if self.sim_backward in ("lb", "pallas", "lb_ad"):
+            return simulate_batched_lb(
+                self.model, q, qd, joint_act, muscle_act, dt=self.dt,
+                substeps=self.sim_substeps,
+                mass_matrix_freq=self.mm_caching_frequency,
+                reverse="residual" if self.sim_backward == "lb_ad"
+                else "replay")
+        s = simulate(self.model, State(joint_q=q, joint_qd=qd),
+                     joint_act=joint_act, muscle_act=muscle_act, dt=self.dt,
+                     substeps=self.sim_substeps,
+                     mass_matrix_freq=self.mm_caching_frequency,
+                     remat_granularity=self.remat_granularity,
+                     backward=self.sim_backward)
+        return s.joint_q, s.joint_qd
 
     def initialize_trajectory(self, env_state: EnvState):
         """Cut the graph to previous windows; returns (detached state,

@@ -7,12 +7,15 @@ defaults: b1 0.9, b2 0.999, eps 1e-8 added to the square root, the same
 bias corrections). optax.scale_by_adam followed by a learning rate is
 Adam itself: PPO, which carries an adaptive learning rate on the device,
 uses ``adam`` with ``fused=True`` and that tensor as its learning rate, so
-that no step reads it back to the host.
+that no step reads it back to the host. ``LBFGS`` is optax.lbfgs with its
+zoom line search (BPTT's ``algo: lbfgs``, optim/lbfgs.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .lbfgs import LBFGS
 
 
 def gd(params, learning_rate: float) -> torch.optim.SGD:

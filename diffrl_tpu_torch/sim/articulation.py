@@ -14,7 +14,9 @@ inverts the mass matrix) and (mass_matrix_freq - 1) cached substeps over
 articulations and particles, with soft contacts coupling the two. Its
 backward is autograd through ``torch.utils.checkpoint`` (JAX's remat): each
 substep, or each group of ``remat_granularity`` cached substeps, keeps only
-its inputs and is recomputed in the backward. The cached substeps reuse
+its inputs and is recomputed in the backward; or, for articulations alone
+with ``backward="manual"``, the hand-written reverse pass of JAX's
+``_simulate_manual`` (``_SimulateManual``). The cached substeps reuse
 the refresh's inverse with the frozen-factor gradient (the solve's H takes
 adj_H = -lam x^T; articulation_lb._SolveFrozenInv).
 """
@@ -270,6 +272,84 @@ def _needs_grad(*xs):
         x is not None and x.requires_grad for x in xs)
 
 
+class _SimulateManual(torch.autograd.Function):
+    """simulate with JAX's hand-written reverse pass (``_simulate_manual``,
+    diffrl_tpu/sim/articulation.py), articulations only, env-minor.
+
+    The forward runs without a graph and saves each substep's pre-state
+    (q, qd) and each block's (H, Hinv). The backward walks the blocks from
+    last to first and the cached substeps of each in reverse: each one is
+    recomputed from its saved pre-state and its cotangent applied with
+    torch.autograd.grad, the cotangent of H summed over the block (Hinv is
+    frozen and takes none); then the block's refresh substep is recomputed
+    with cotangents on (q1, qd1, H). Gradients reach (q, qd, joint_act,
+    muscle_act); the model's arrays are constants."""
+
+    @staticmethod
+    def run(model, h, nblocks, mm, q, qd, ja, ma):
+        """The forward: (q', qd', the saved pre-states and factors)."""
+        plan = _plan(model, q)
+        saved = []
+        for _ in range(nblocks):
+            q0, qd0 = q, qd
+            q, qd, HL, _ = _articulation(plan, model, q, qd, ja, ma, h, None)
+            saved += [q0, qd0, *HL]
+            for _ in range(mm - 1):
+                saved += [q, qd]
+                q, qd, _, _ = _articulation(plan, model, q, qd, ja, ma, h,
+                                            HL)
+        return q, qd, saved
+
+    @staticmethod
+    def forward(ctx, model, h, nblocks, mm, q, qd, ja, ma):
+        q, qd, saved = _SimulateManual.run(model, h, nblocks, mm, q, qd, ja,
+                                           ma)
+        ctx.model, ctx.h, ctx.nblocks, ctx.mm = model, h, nblocks, mm
+        ctx.save_for_backward(ja, ma, *saved)
+        return q, qd
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gq, gqd):
+        model, h, mm = ctx.model, ctx.h, ctx.mm
+        ja, ma, *saved = ctx.saved_tensors
+        plan = _plan(model, ja)
+        per_block = 4 + 2 * (mm - 1)
+        ctrl = [ja] + ([ma] if ma is not None else [])
+        gctrl = [torch.zeros_like(x) for x in ctrl]
+
+        def vjp(fn, xs, cots):
+            leaves = [x.detach().requires_grad_() for x in xs]
+            with torch.enable_grad():
+                return torch.autograd.grad(fn(*leaves), leaves, cots)
+
+        def controls(c):
+            return c[0], (c[1] if ma is not None else None)
+
+        for b in reversed(range(ctx.nblocks)):
+            q0, qd0, H, Hinv, *states = saved[b * per_block:
+                                              (b + 1) * per_block]
+            gH = torch.zeros_like(H)
+            for i in reversed(range(mm - 1)):
+                def cached(q, qd, H_, *c):
+                    return _articulation(plan, model, q, qd, *controls(c), h,
+                                         (H_, Hinv))[:2]
+                gq, gqd, dH, *dc = vjp(cached, [states[2 * i],
+                                                states[2 * i + 1], H, *ctrl],
+                                       (gq, gqd))
+                gH = gH + dH
+                gctrl = [a + d for a, d in zip(gctrl, dc)]
+
+            def refresh(q, qd, *c):
+                q1, qd1, (H1, _), _ = _articulation(plan, model, q, qd,
+                                                    *controls(c), h, None)
+                return q1, qd1, H1
+            gq, gqd, *dc = vjp(refresh, [q0, qd0, *ctrl], (gq, gqd, gH))
+            gctrl = [a + d for a, d in zip(gctrl, dc)]
+        return (None, None, None, None, gq, gqd, gctrl[0],
+                gctrl[1] if ma is not None else None)
+
+
 def simulate(
     model: Model,
     state: State,
@@ -293,19 +373,28 @@ def simulate(
     ``torch.utils.checkpoint`` (non-reentrant): the backward keeps only the
     carried state per substep and recomputes each substep with its
     backward; ``remat_granularity`` > 1 groups that many cached substeps
-    into one recomputed region. ``backward="manual"`` (the JAX package's
-    hand-written reverse pass over unrolled substeps, articulations only)
-    is not ported: it raises NotImplementedError (ROADMAP.md, queue A6);
-    with particles it takes the remat path, as in the JAX package.
+    into one recomputed region. ``backward="manual"`` takes the JAX
+    package's hand-written reverse pass (``_SimulateManual``) for
+    articulations alone; with particles it takes the remat path, as in the
+    JAX package.
     """
-    if backward == "manual" and state.particle_q is None:
-        raise NotImplementedError(
-            "simulate(backward='manual'), the hand-written reverse pass, is "
-            "not ported (ROADMAP.md A6); use backward='remat'")
     if backward not in ("remat", "manual"):
         raise ValueError(f"unknown backward {backward!r}")
     if substeps % mass_matrix_freq != 0:
         raise ValueError("substeps must be a multiple of mass_matrix_freq")
+    if backward == "manual" and state.particle_q is None:
+        q, qd = state.joint_q.T, state.joint_qd.T
+        ja = (q.new_zeros((model.dof_count, q.shape[-1]))
+              if joint_act is None else joint_act.T)
+        ma = None if muscle_act is None else muscle_act.T
+        args = (model, dt / float(substeps), substeps // mass_matrix_freq,
+                mass_matrix_freq, q, qd, ja, ma)
+        if _needs_grad(q, qd, ja, ma):
+            q, qd = _SimulateManual.apply(*args)
+        else:
+            with torch.no_grad():
+                q, qd, _ = _SimulateManual.run(*args)
+        return State(q.T, qd.T, state.particle_q, state.particle_qd)
     n_inner = mass_matrix_freq - 1
     g = max(1, int(remat_granularity))
     if n_inner % g:

@@ -26,7 +26,9 @@ and ``substep_vjp_lb`` that of its adjoint kernel (sim/substep_kernels.py);
 ``simulate_batched_lb`` sends its cached substeps, forward and reverse, to
 those kernels' wrappers, which launch the kernels on CUDA tensors and run
 the plain versions on CPU tensors. Its reverse pass is the reference's
-replay: the refresh substeps are replayed under autograd.
+replay (the refresh substeps are replayed under autograd), or with
+``reverse="residual"`` autograd through the saved substeps: each cached
+substep an autograd node of the two kernels (``_CachedSubstep``).
 """
 
 from __future__ import annotations
@@ -1172,6 +1174,46 @@ class _SimulateReplay(torch.autograd.Function):
         return None, None, None, None, gq, gqd, gja, gma
 
 
+class _CachedSubstep(torch.autograd.Function):
+    """One cached substep as an autograd node (the reverse pass
+    "residual", JAX's autodiff through the substep scan): the forward is
+    the cached-substep kernel's wrapper (substep_forward) and saves its
+    inputs; the backward is the adjoint kernel's wrapper (substep_vjp) on
+    them, with no replay. H takes the frozen-factor cotangent, Hinv
+    none."""
+
+    @staticmethod
+    def forward(ctx, model, h, q, qd, ja, ma, H, Hinv):
+        from .substep_kernels import substep_forward
+
+        ctx.model, ctx.h = model, h
+        ctx.save_for_backward(q, qd, ja, ma, H, Hinv)
+        return substep_forward(model, q, qd, ja, ma, h, H, Hinv)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gq, gqd):
+        from .substep_kernels import substep_vjp
+
+        q, qd, ja, ma, H, Hinv = ctx.saved_tensors
+        dq, dqd, dja, dma, dH = substep_vjp(
+            ctx.model, q, qd, ja, ma, ctx.h, H, Hinv, gq.contiguous(),
+            gqd.contiguous())
+        return None, None, dq, dqd, dja, dma, dH, None
+
+
+def _simulate_residual(model, h, nblocks, mm, q, qd, ja, ma):
+    """Blocks of one refresh and (mm - 1) cached substeps under autograd:
+    the refresh differentiated through its plain code (autograd keeps its
+    intermediates), each cached substep a _CachedSubstep."""
+    for _ in range(nblocks):
+        q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
+        q, qd = q.contiguous(), qd.contiguous()
+        for _ in range(mm - 1):
+            q, qd = _CachedSubstep.apply(model, h, q, qd, ja, ma, H, Hinv)
+    return q, qd
+
+
 def simulate_batched_lb(
     model: Model,
     joint_q,
@@ -1189,15 +1231,16 @@ def simulate_batched_lb(
     joint_q [E, C], joint_qd/joint_act [E, D], muscle_act [E, M] | None.
     Returns (joint_q' [E, C], joint_qd' [E, D]). Cached substeps run the
     kernel wrappers (substep_forward, and substep_vjp in the backward).
-    When an input requires grad, the replay reverse pass
-    (_SimulateReplay) differentiates it; otherwise nothing is saved.
-    ``reverse="residual"`` (the reference's autodiff-through-the-scan
-    variant, measured slower there) is not ported (ROADMAP.md A6).
+    When an input requires grad, ``reverse`` says how it is
+    differentiated: "replay" by the replay reverse pass
+    (_SimulateReplay), which saves only the states and factors;
+    "residual" by autograd through the substeps (_simulate_residual), which
+    keeps the refresh substeps' intermediates and each cached substep's
+    inputs and replays nothing (the JAX package's autodiff through the
+    scan). Otherwise nothing is saved.
     """
-    if reverse != "replay":
-        raise NotImplementedError(
-            f"reverse={reverse!r}: only the replay reverse pass is ported; "
-            f"'residual' waits in ROADMAP.md A6")
+    if reverse not in ("replay", "residual"):
+        raise ValueError(f"unknown reverse {reverse!r}")
     if substeps % mass_matrix_freq != 0:
         raise ValueError("substeps must be a multiple of mass_matrix_freq")
     nblocks = substeps // mass_matrix_freq
@@ -1213,8 +1256,9 @@ def simulate_batched_lb(
 
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, qd, ja, ma)):
-        q, qd = _SimulateReplay.apply(model, h, nblocks, mass_matrix_freq,
-                                      q, qd, ja, ma)
+        q, qd = (_SimulateReplay.apply if reverse == "replay"
+                 else _simulate_residual)(model, h, nblocks,
+                                          mass_matrix_freq, q, qd, ja, ma)
     else:
         q, qd, _ = _simulate_forward(model, h, nblocks, mass_matrix_freq, q,
                                      qd, ja, ma, save=False)

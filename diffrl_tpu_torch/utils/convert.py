@@ -11,7 +11,11 @@ model-free networks are ``{"trunk": [...], "mu": [...], "value": [...],
 DoubleCriticMLP) and ``{"mlp": [...]}`` (SACActor); SAC's temperature is a
 scalar ``log_alpha`` with an Adam state of its own, and PPO's optimizer is
 optax.scale_by_adam alone (torch's Adam at the carried learning rate). The
-converters take
+config-built A2CNetwork is ``{"trunk": {"cnn": [{"w" HWIO, "b"}], "rnn":
+[{"wi", "wh", "b"}], "mlp": [...]}, "trunk_critic" (separate trunks),
+"mu", "logstd" or "sigma_head" (continuous) or "logits": [[...], ...]
+(one MLP per discrete head), "value"}``; a conv weight goes into the
+port's OIHW Conv2d permuted. The converters take
 those pytrees with numpy leaves (``jax.device_get`` of the parameters, or
 the arrays read out of a checkpoint by the caller) and never unpickle JAX
 classes themselves.
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.builders import A2CNetwork
 from ..models.mlp import (MLP, ActorCriticPPO, ActorDeterministicMLP,
                           ActorStochasticMLP, CriticMLP, DoubleCriticMLP,
                           SACActor)
@@ -56,12 +61,50 @@ def _mlp_pairs(module: MLP, layers: List[Mapping[str, Any]]
             yield f"layer {i} ln_bias", module.norms[i].bias, layer["ln_bias"]
 
 
+def _a2c_pairs(net: A2CNetwork, params):
+    for key in ("trunk", "trunk_critic"):
+        trunk = getattr(net, key)
+        if trunk is None:
+            continue
+        tp = params[key]
+        for i, (conv, layer) in enumerate(zip(trunk.cnn or (),
+                                              tp.get("cnn", ()))):
+            # HWIO -> OIHW, a view of the leaf
+            yield f"{key} cnn {i} w", conv.weight, np.transpose(
+                np.asarray(layer["w"]), (3, 2, 0, 1))
+            yield f"{key} cnn {i} b", conv.bias, layer["b"]
+        for i, (cell, layer) in enumerate(zip(trunk.rnn or (),
+                                              tp.get("rnn", ()))):
+            for k in ("wi", "wh", "b"):
+                yield f"{key} rnn {i} {k}", getattr(cell, k), layer[k]
+        if trunk.mlp is not None:
+            for name, dst, src in _mlp_pairs(trunk.mlp, tp["mlp"]):
+                yield f"{key} mlp {name}", dst, src
+    heads = [("value", net.value, params["value"])]
+    if net.space == "continuous":
+        heads.append(("mu", net.mu, params["mu"]))
+        if net.fixed_sigma:
+            yield "logstd", net.logstd, params["logstd"]
+        else:
+            heads.append(("sigma_head", net.sigma_head, params["sigma_head"]))
+    else:
+        heads += [(f"logits {i}", head, layers) for i, (head, layers) in
+                  enumerate(zip(net.logits, params["logits"]))]
+    for key, head, layers in heads:
+        for name, dst, src in _mlp_pairs(head, layers):
+            yield f"{key} {name}", dst, src
+
+
 def param_pairs(module, params) -> List[Tuple[str, torch.Tensor, Any]]:
-    """(name, parameter of ``module``, leaf of ``params``) for a network of
-    models.mlp and a pytree shaped like its JAX parameters; ``module`` may
-    also be a lone parameter (SAC's log_alpha) and ``params`` its leaf."""
+    """(name, parameter of ``module``, leaf of ``params`` in the port's
+    layout) for a network of models.mlp or models.builders and a pytree
+    shaped like its JAX parameters; ``module`` may also be a lone parameter
+    (SAC's log_alpha) and ``params`` its leaf. A leaf whose layout differs
+    (a conv weight) comes as a numpy view of it in the port's layout."""
     if isinstance(module, torch.Tensor):
         return [("tensor", module, params)]
+    if isinstance(module, A2CNetwork):
+        return list(_a2c_pairs(module, params))
     if isinstance(module, ActorCriticPPO):
         parts = (("trunk", module.trunk), ("mu", module.mu),
                  ("value", module.value))
@@ -85,6 +128,24 @@ def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     for name, dst, src in param_pairs(module, params):
         _copy(dst, src, name)
     return module
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return np.array(tree, dtype=np.float32)
+
+
+def jax_params(module, like):
+    """``module``'s parameters back in the JAX layout: a pytree of numpy
+    arrays shaped like ``like`` (the JAX parameters it was loaded from, or
+    any tree of that structure)."""
+    out = _numpy_tree(like)
+    for _, dst, view in param_pairs(module, out):
+        np.copyto(view, dst.detach().cpu().numpy())
+    return out
 
 
 @torch.no_grad()

@@ -226,10 +226,10 @@ def check_cached(name, E=4, seed=2):
                                    atol=1e-7)
 
 
-def check_env_step(name, seed=3):
+def check_env_step(name, seed=3, backward="lb"):
     """env.step from injected identical states and actions at E = 4, both
-    sides on the lb engine with the env's substeps and mass-matrix period
-    of MM: the values (obs, reward, done, next state; rtol 1e-5, atol
+    sides on the reverse pass ``backward`` (the lb engine unless another is
+    named) with the env's substeps and mass-matrix period of MM: the values (obs, reward, done, next state; rtol 1e-5, atol
     5e-5) and the gradient of sum(reward) + <w, obs> w.r.t. (actions,
     joint_q, joint_qd) (rtol 1e-3, atol 1e-4 in units of each env's
     largest entry, testing.check_vjp). TinySNU's actions reach the
@@ -245,13 +245,13 @@ def check_env_step(name, seed=3):
 
     E = 4
     kw = dict(num_envs=E, seed=0, stochastic_init=False, episode_length=50,
-              MM_caching_frequency=MM[name])
+              MM_caching_frequency=MM[name], sim_backward=backward)
     if name == "TinySNU":
-        je, te = JTinySNU(sim_backward="lb", **kw), TTinySNU(device="cpu",
-                                                             **kw)
+        je, te = JTinySNU(**kw), TTinySNU(device="cpu", **kw)
     else:
-        je = jenvs.make(name, sim_backward="lb", **kw)
+        je = jenvs.make(name, **kw)
         te = tenvs.make(name, device="cpu", **kw)
+    assert je.sim_backward == te.sim_backward == backward
     q, qd, act, _, _ = inputs(te, E, seed)
     act = 0.9 * act
     early = name == "TinySNU"

@@ -35,6 +35,8 @@ from diffrl_tpu.algorithms.bptt import BPTT as JBPTT
 from diffrl_tpu_torch.algorithms import BPTT
 from diffrl_tpu_torch.algorithms.bptt import make_optimizer
 from diffrl_tpu_torch.algorithms.shac import clip_and_step
+from diffrl_tpu_torch.optim import LBFGS
+from diffrl_tpu_torch.optim import lbfgs as lbfgs_consts
 from diffrl_tpu_torch.envs.base import EnvState as TState
 from diffrl_tpu_torch.utils.convert import (load_adam_state, load_params,
                                             param_pairs)
@@ -149,8 +151,13 @@ def test_optimizers_by_name():
         p.grad = torch.tensor([1.0, -2.0, 0.0])
         opt.step()
     _close(p, [0.0, 3.0, 1.0], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        make_optimizer("lbfgs", [p], 0.1, (0.7, 0.95))
+    lbfgs = make_optimizer("lbfgs", [p], 0.1, (0.7, 0.95))
+    assert isinstance(lbfgs, LBFGS)
+    assert (lbfgs_consts.MEMORY_SIZE, lbfgs_consts.MAX_LINESEARCH_STEPS) == (
+        10, 8)
+    assert lbfgs.diff_params.shape == (10, 3)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer("rmsprop", [p], 0.1, (0.7, 0.95))
 
 
 def test_port_epoch_on_cartpole_and_checkpoint(tmp_path):

@@ -161,9 +161,13 @@ def test_simulate_options(ant):
     qd = torch.zeros((1, tm.dof_count))
     with pytest.raises(ValueError, match="multiple"):
         tlb.simulate_batched_lb(tm, q, qd, mass_matrix_freq=5)
-    with pytest.raises(NotImplementedError, match="replay"):
+    with pytest.raises(ValueError, match="reverse"):
         tlb.simulate_batched_lb(tm, q, qd, mass_matrix_freq=16,
-                                reverse="residual")
+                                reverse="scan")
+    replay = tlb.simulate_batched_lb(tm, q, qd, mass_matrix_freq=16)
+    residual = tlb.simulate_batched_lb(tm, q, qd, mass_matrix_freq=16,
+                                       reverse="residual")
+    assert all(torch.equal(a, b) for a, b in zip(replay, residual))
 
 
 def test_grad_nan_guard_zeroes_nan_cotangent():

@@ -214,5 +214,7 @@ def test_shac_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="multi_gpu"):
         SHAC(cfg, device="cpu")
     cfg = _cfg(tmp_path, sim_backward="remat")
-    with pytest.raises(NotImplementedError, match="sim_backward"):
+    assert SHAC(cfg, device="cpu").env.sim_backward == "remat"
+    cfg = _cfg(tmp_path, sim_backward="scan")
+    with pytest.raises(ValueError, match="sim_backward"):
         SHAC(cfg, device="cpu")

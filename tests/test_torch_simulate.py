@@ -226,16 +226,22 @@ def test_env_step_gradient_remat_equals_lb(name, mm):
 def test_backward_choice():
     env = envs.make("Ant", num_envs=2, device="cpu")
     assert env.sim_backward == "lb"          # the JAX package's "auto" rule
-    for backward in ("manual", "lb_ad"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            envs.make("Ant", num_envs=2, device="cpu",
-                      sim_backward=backward)
+    for backward in ("manual", "lb_ad", "pallas"):
+        assert envs.make("Ant", num_envs=2, device="cpu",
+                         sim_backward=backward).sim_backward == backward
+    with pytest.raises(ValueError, match="sim_backward"):
+        envs.make("Ant", num_envs=2, device="cpu", sim_backward="scan")
     m = chip_smoke.coupled_scene()
     st = m.state(1, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.simulate(m, dataclasses.replace(st, particle_q=None,
-                                           particle_qd=None),
-                    backward="manual")
+    # without particles "manual" is the hand-written reverse pass: the
+    # same forward as remat
+    joints = dataclasses.replace(st, particle_q=None, particle_qd=None)
+    a = TA.simulate(m, joints, backward="manual", substeps=2,
+                    mass_matrix_freq=2)
+    b = TA.simulate(m, joints, substeps=2, mass_matrix_freq=2)
+    assert torch.equal(a.joint_q, b.joint_q)
+    assert torch.equal(a.joint_qd, b.joint_qd)
+    # with particles it takes the remat path, as in the JAX package
     s1 = TA.simulate(m, st, backward="manual", substeps=2)
     s2 = TA.simulate(m, st, substeps=2)
     assert torch.equal(s1.particle_q, s2.particle_q)
