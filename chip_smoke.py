@@ -115,12 +115,12 @@ raises and the script exits non-zero:
               each through the trainer's train() from
               examples/cfg/<algo>/<cfg>: SHAC from
               shac/{ant,humanoid,hopper,cheetah,cartpole_swing_up,
-              snu_humanoid}.yaml at 4096 envs x 32 steps (Ant and Humanoid
-              2 epochs, the others 1; K1 and K2 launch 32 x (substeps / mm)
-              x (mm - 1) times each per epoch: Humanoid 1,504, CartPole
-              96, SNU Humanoid 1,344); BPTT from bptt/ant.yaml (32 envs,
-              steps_num cut from 1,000 to 100: K1 and K2 1,500 each) and
-              cartpole_swing_up.yaml (64 x 240: 720 each); PPO from
+              snu_humanoid}.yaml at 4096 envs x 32 steps (1 epoch each; K1
+              and K2 launch 32 x (substeps / mm) x (mm - 1) times each per
+              epoch: Humanoid 1,504, CartPole 96, SNU Humanoid 1,344); BPTT
+              from bptt/ant.yaml (32 envs, steps_num cut from 1,000 to 50:
+              K1 and K2 750 each) and cartpole_swing_up.yaml (64 envs,
+              steps_num cut from 240 to 120: 360 each); PPO from
               ppo/ant.yaml (2048 x 32, minibatches of 16,384, 5
               mini-epochs: K1 480, K2 0); SAC from sac/ant.yaml (128 x 128,
               batch 4,096, ring of 999,936; num_seed_steps cut from 5 to
@@ -145,6 +145,35 @@ raises and the script exits non-zero:
               the 6 x 6 image and a GRU, each trained with that test's
               config and held to its threshold on the deterministic
               evaluation reward (6, 4 and 2; random play earns 2).
+   multi   -- data-parallel training over torch.distributed
+              (diffrl_tpu_torch.parallel, the trainers' multi_gpu): SHAC
+              Ant from shac/ant.yaml at 4096 envs as 2 ranks x 2048 and PPO
+              Ant from ppo/ant.yaml at 2048 as 2 x 1024, each rank a process
+              of its own (python3 chip_smoke.py --multi-rank ...) on the one
+              card, gloo on CUDA tensors (NCCL refuses two ranks on one
+              device), one epoch through train(); the ranks' statistics and
+              parameters bit for bit equal, the first epoch's actor loss
+              (PPO: loss and critic loss) and the policy's parameters
+              after it (2-norm) at MULTI's bounds against the
+              train phase's one-process first epoch; K1 and K2 launches
+              per rank (SHAC 480 and 480, PPO 480 and 0) and seconds per
+              epoch; every rank's exit code checked. Then SHAC Ant with
+              multi_gpu at world size 1 on NCCL in this process, two
+              epochs: the first against the one-process run as above, no
+              host sync in the second.
+   serve   -- the trained SHAC Ant policy saved (Trainer.save), built by
+              utils.export.shac_policy_fn, exported with torch.export on
+              the card, loaded and served by serve_policy's HTTP server in
+              a thread; batches of 1, 64 and 4096 observations POSTed to
+              /act, the actions held at 1e-6 against the trainer's actor;
+              ms per request; a bad path and body refused.
+   profile -- one SHAC Ant epoch under utils.profiling.trace() (CPU and
+              CUDA activity): the top 15 device ops by time
+              (summarize_trace), K1's and K2's kernels found by name, and
+              the device-busy share of the traced window.
+   render  -- after the main phase, its policy for 64 steps from a reset,
+              env 0 into a .usda stage (render.UsdRenderer) and an HTML
+              viewer (viewer.HtmlViewer); 64 frames in each.
 8. timing  -- per model, device time per launch of both kernels (CUDA
               events with the host queued ahead), per-call times, the plain
               versions as CUDA graphs; for Ant, Humanoid and SNU Humanoid
@@ -154,7 +183,8 @@ raises and the script exits non-zero:
 Before the last line it prints the nvidia-smi line and one JSON line with
 each kernel's launches per model (over its SHAC training path's epochs,
 and over each training path's epochs, by its TRAINERS label, and for Ant
-per env step gradient on each reverse pass in launches_by_path), errors,
+per env step gradient on each reverse pass, per rank of each multi path,
+the profiled epoch and the rendered steps in launches_by_path), errors,
 times, bound,
 threads per env and warps per SM; the last line is
 {"ok": true, "device": {...}}.
@@ -182,11 +212,14 @@ E = 4096
 # the models on the port's paths: substeps per env step and the mass-matrix
 # period of each config, zero-action env steps from env.reset() until
 # ground contacts are active (CartPole has no ground), and training epochs
-# from examples/cfg/shac/<cfg>
+# from examples/cfg/shac/<cfg>. The training paths' depth is cut to keep
+# the script well inside its time limit with the multi, serve and profile
+# phases (about 150 s): SHAC Ant and Humanoid 1 epoch (not 2), BPTT Ant
+# steps_num 50 (not 100) and BPTT CartPole 120 (not 240).
 MODELS = {
-    "Ant": dict(substeps=16, mm=16, settle=14, cfg="ant.yaml", epochs=2),
+    "Ant": dict(substeps=16, mm=16, settle=14, cfg="ant.yaml", epochs=1),
     "Humanoid": dict(substeps=48, mm=48, settle=12, cfg="humanoid.yaml",
-                     epochs=2),
+                     epochs=1),
     "Hopper": dict(substeps=16, mm=16, settle=8, cfg="hopper.yaml",
                    epochs=1),
     "Cheetah": dict(substeps=16, mm=16, settle=16, cfg="cheetah.yaml",
@@ -282,11 +315,12 @@ TRAINERS = {
                   * (spec["mm"] - 1),) * 2)
        for name, spec in MODELS.items()},
     "BPTT Ant": dict(algo="bptt", model="Ant", cfg="ant.yaml",
-                     config=dict(steps_num=100), epochs=1, split=True,
-                     launches=(1500, 1500)),
+                     config=dict(steps_num=50), epochs=1, split=True,
+                     launches=(750, 750)),
     "BPTT CartPole": dict(algo="bptt", model="CartPoleSwingUp",
-                          cfg="cartpole_swing_up.yaml", config={}, epochs=1,
-                          split=False, launches=(720, 720)),
+                          cfg="cartpole_swing_up.yaml",
+                          config=dict(steps_num=120), epochs=1,
+                          split=False, launches=(360, 360)),
     "PPO Ant": dict(algo="ppo", model="Ant", cfg="ant.yaml", config={},
                     epochs=1, split=True, launches=(480, 0)),
     "SAC Ant": dict(algo="sac", model="Ant", cfg="ant.yaml",
@@ -934,17 +968,12 @@ def trainer_params(trainer):
     raise AttributeError("no actor")
 
 
-def train(label, dev, card, gen):
-    """The epochs of TRAINERS[label] through the trainer's train(), with the
-    launch counts set to 0 just before and read just after, and read per
-    epoch as well; then K1 and K2 held against their plain versions at the
-    trainer's own E on its last env state (hold_kernels). Returns (trainer,
-    [per epoch: dict of seconds, peak GB, host syncs, launches]) and checks
-    the launch counts, finite statistics and a changed policy."""
+def trainer_cfg(label, **extra):
+    """The config of TRAINERS[label] (examples/cfg/<algo>/<cfg> with the
+    row's entries set, a fresh log directory, seed 0, no checkpoints but
+    the final one) with ``extra``'s config entries; and the entries changed
+    from the file."""
     import yaml
-
-    from diffrl_tpu_torch.algorithms import BPTT, PPO, SAC, SHAC
-    from diffrl_tpu_torch.sim import substep_kernels as sk
 
     spec = TRAINERS[label]
     with open(os.path.join(ROOT, "examples", "cfg", spec["algo"],
@@ -961,12 +990,41 @@ def train(label, dev, card, gen):
         changed.append(f"algo.name {cfg['params']['algo']['name']} -> "
                        f"{spec['algo_name']}")
         cfg["params"]["algo"]["name"] = spec["algo_name"]
-    logdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
-    cfg["params"]["general"] = {"logdir": logdir, "seed": 0}
+    cfg["params"]["general"] = {
+        "logdir": tempfile.mkdtemp(prefix="chip_smoke_trainer_"), "seed": 0}
     config.update(max_epochs=spec["epochs"], save_interval=0,
                   save_frequency=0, **spec["config"])
-    cls = {"shac": SHAC, "bptt": BPTT, "ppo": PPO, "sac": SAC}[spec["algo"]]
-    trainer = cls(cfg, device=dev)
+    config.update(extra)
+    return cfg, changed
+
+
+def make_trainer(label, cfg, dev):
+    from diffrl_tpu_torch.algorithms import BPTT, PPO, SAC, SHAC
+
+    cls = {"shac": SHAC, "bptt": BPTT, "ppo": PPO,
+           "sac": SAC}[TRAINERS[label]["algo"]]
+    return cls(cfg, device=dev)
+
+
+def flat_params(trainer):
+    return torch.cat([p.detach().reshape(-1)
+                      for p in trainer_params(trainer)])
+
+
+def train(label, dev, card, gen):
+    """The epochs of TRAINERS[label] through the trainer's train(), with the
+    launch counts set to 0 just before and read just after, and read per
+    epoch as well; then K1 and K2 held against their plain versions at the
+    trainer's own E on its last env state (hold_kernels). Returns (trainer,
+    [per epoch: dict of seconds, peak GB, host syncs, launches, the policy's
+    parameters after it and its statistics]) and checks the launch counts,
+    finite statistics and a changed policy."""
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    spec = TRAINERS[label]
+    cfg, changed = trainer_cfg(label)
+    logdir = cfg["params"]["general"]["logdir"]
+    trainer = make_trainer(label, cfg, dev)
     before = [p.detach().clone() for p in trainer_params(trainer)]
     train_epoch = trainer.train_epoch
     records = []
@@ -983,6 +1041,7 @@ def train(label, dev, card, gen):
             gb=torch.cuda.max_memory_allocated() / 1e9, syncs=syncs,
             launches=(sk.substep_forward.launches - n[0],
                       sk.substep_vjp.launches - n[1]),
+            params=flat_params(trainer).clone(),
             probes=getattr(getattr(trainer, "actor_opt", None),
                            "linesearch_steps", None)))
         return out
@@ -1003,6 +1062,8 @@ def train(label, dev, card, gen):
     stats = {k: [v for _, _, v in trainer.scalars[k]]
              for k in ("actor_loss", "value_loss", "loss", "a_loss",
                        "c_loss", "kl", "lr", "alpha") if k in trainer.scalars}
+    for i, r in enumerate(records):
+        r["stats"] = {k: v[i] for k, v in stats.items()}
     if not stats or not all(math.isfinite(v) for vs in stats.values()
                             for v in vs):
         raise RuntimeError(f"{label} statistics {stats}")
@@ -1637,6 +1698,386 @@ def check_backwards(envs_, s1, acts, gen, card):
     return out, summaries
 
 
+# the multi phase's data-parallel runs: the TRAINERS rows repeated with
+# multi_gpu over two ranks on the one card (gloo: NCCL refuses two ranks on
+# one device), each with the first-epoch statistics held against the
+# one-process run, and how far the two ranks may lie from it: those
+# statistics at a relative bound, every parameter of the policy after the
+# epoch at a relative bound in the 2-norm. The ranks sum in another order
+# (each its half of the envs, then the all-reduce) than one process. SHAC:
+# the actor's loss before its step and its one Adam step (1e-5 and 1e-4,
+# the bounds of reordered float32 sums). PPO: the epoch's mean loss and
+# critic loss over 20 minibatch steps whose KL adapts the learning rate
+# (x 1.5 or / 1.5 at a threshold, so a reordered sum can move a step's
+# rate): 1e-4 and 1e-3 (on an NVIDIA H100 80GB HBM3 at 700 W the two
+# lay 2.5e-6 and 8.2e-5 apart).
+MULTI = {"SHAC Ant": (("actor_loss",), 1e-5, 1e-4),
+         "PPO Ant": (("loss", "c_loss"), 1e-4, 1e-3)}
+RANK_TIMEOUT_S = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multi_rank(label, rank, world, port, out):
+    """One rank of a multi-phase run, in a process of its own (``python3
+    chip_smoke.py --multi-rank LABEL RANK WORLD PORT OUT``): joins the gloo
+    group on localhost:PORT, trains TRAINERS[LABEL]'s config with
+    multi_gpu for one epoch through train(), with the launch counts set to
+    0 just before and read just after, and saves its statistics, the
+    policy's parameters, launches and seconds to OUT."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from diffrl_tpu_torch.parallel import mesh as mesh_lib
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    rank, world = int(rank), int(world)
+    mesh_lib.init_distributed(f"localhost:{port}", world, rank,
+                              backend="gloo", device="cuda",
+                              timeout_s=RANK_TIMEOUT_S)
+    cfg, _ = trainer_cfg(label, multi_gpu=True, max_epochs=1)
+    trainer = make_trainer(label, cfg, "cuda")
+    torch.cuda.synchronize()
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    t = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    torch.save(dict(
+        stats={k: v[0][2] for k, v in trainer.scalars.items()},
+        params=flat_params(trainer).cpu(), seconds=seconds,
+        launches=(sk.substep_forward.launches, sk.substep_vjp.launches),
+        device=str(trainer.device), envs=trainer.env.num_envs), out)
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(cfg["params"]["general"]["logdir"], ignore_errors=True)
+    return 0
+
+
+def run_ranks(label, world):
+    """Starts ``world`` processes of multi_rank for TRAINERS[label] at once
+    (LOCAL_RANK set as torchrun sets it), waits for each with a timeout,
+    fails on any exit code but 0, and returns their records."""
+    port = str(free_port())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    outs = [os.path.join(tmp, f"{r}.pt") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multi-rank", label,
+         str(r), str(world), port, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, LOCAL_RANK=str(r))) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{label} rank {r} of {world} exited with "
+                               f"{p.returncode}:\n{log[-6000:]}")
+    recs = [torch.load(o) for o in outs]
+    shutil.rmtree(tmp)
+    return recs
+
+
+def against_one_process(label, recs, one):
+    """The ranks' first epoch against the one-process run's first epoch
+    (``one``, a train() record): the ranks' statistics and parameters bit
+    for bit, the statistics and the parameters (2-norm) of MULTI[label]
+    at its bounds. Returns (largest relative
+    difference of those statistics, relative 2-norm of the parameters'
+    difference)."""
+    def same(a, b):          # the host's fps aside; nan equals nan
+        return a.keys() == b.keys() and all(
+            k == "fps" or a[k] == b[k] or (math.isnan(a[k])
+                                           and math.isnan(b[k])) for k in a)
+
+    for r in recs[1:]:
+        if not same(r["stats"], recs[0]["stats"]) or not torch.equal(
+                r["params"], recs[0]["params"]):
+            raise RuntimeError(f"{label}: the ranks disagree: "
+                               f"{[x['stats'] for x in recs]}")
+    keys, stat_bound, par_bound = MULTI[label]
+    stat_rel = max(abs(recs[0]["stats"][k] - one["stats"][k])
+                   / abs(one["stats"][k]) for k in keys)
+    want = one["params"].cpu()
+    par_rel = float((recs[0]["params"] - want).norm() / want.norm())
+    if not (stat_rel <= stat_bound and par_rel <= par_bound):
+        raise RuntimeError(f"{label}: two ranks against one process: "
+                           f"statistics {recs[0]['stats']} vs "
+                           f"{one['stats']} (relative {stat_rel:.3e}, "
+                           f"bound {stat_bound}), parameters relative "
+                           f"{par_rel:.3e} (bound {par_bound})")
+    return stat_rel, par_rel
+
+
+def check_multi(records, card):
+    """The multi phase: (a) SHAC Ant and (c) PPO Ant over two gloo ranks on
+    the one card, each rank half the envs, against the train phase's
+    one-process first epoch; (b) SHAC Ant with multi_gpu at world size 1 on
+    NCCL in this process, two epochs, against the same first epoch, with
+    the host syncs of its second epoch. Returns {path: (K1, K2) launches}
+    (per rank)."""
+    from diffrl_tpu_torch.parallel import mesh as mesh_lib
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    launches = {}
+    for label in MULTI:
+        t0 = time.perf_counter()
+        recs = run_ranks(label, 2)
+        stat_rel, par_rel = against_one_process(label, recs,
+                                                records[label][0])
+        want = TRAINERS[label]["launches"]
+        if any(tuple(r["launches"]) != tuple(want) for r in recs):
+            raise RuntimeError(f"multi {label}: launches per rank "
+                               f"{[r['launches'] for r in recs]}, expected "
+                               f"{want}")
+        for r, rec in enumerate(recs):
+            launches[f"multi {label} rank {r} of 2"] = tuple(rec["launches"])
+        keys, stat_bound, par_bound = MULTI[label]
+        values = ", ".join(f"{k} {recs[0]['stats'][k]:.6g}" for k in keys)
+        phase("multi", f"{label} multi_gpu, 2 ranks (gloo) x {recs[0]['envs']}"
+              f" envs on {recs[0]['device']}: seconds per epoch (the first, "
+              f"it builds nothing) " + ", ".join(
+                  f"{r['seconds']:.3f}" for r in recs) + f" (one process "
+              f"{records[label][0]['s']:.3f}); ranks bit for bit equal; "
+              f"{values} vs one process, max relative {stat_rel:.3e} "
+              f"(bound {stat_bound}), parameters after the epoch relative "
+              f"{par_rel:.3e} in the 2-norm (bound {par_bound}); K1, K2 "
+              f"launches per rank {[tuple(r['launches']) for r in recs]}; "
+              f"{time.perf_counter() - t0:.1f} s with the processes' start "
+              f"| {card}")
+
+    # (b) one rank on NCCL, in this process, two epochs (the first against
+    # the one-process run's, the second for its host syncs)
+    label = "SHAC Ant"
+    mesh_lib.init_distributed(f"localhost:{free_port()}", 1, 0,
+                              backend="nccl", device="cuda")
+    try:
+        cfg, _ = trainer_cfg(label, multi_gpu=True, max_epochs=2)
+        trainer = make_trainer(label, cfg, "cuda")
+        if torch.distributed.get_backend(trainer.mesh.group) != "nccl":
+            raise RuntimeError("multi: the world of one is not on NCCL")
+        inner, recs = trainer.train_epoch, []
+
+        def recorded():
+            torch.cuda.synchronize()
+            n = (sk.substep_forward.launches, sk.substep_vjp.launches)
+            t = time.perf_counter()
+            out, syncs = host_syncs(inner)
+            torch.cuda.synchronize()
+            recs.append(dict(s=time.perf_counter() - t, syncs=syncs,
+                             launches=(sk.substep_forward.launches - n[0],
+                                       sk.substep_vjp.launches - n[1]),
+                             params=flat_params(trainer).cpu()))
+            return out
+
+        trainer.train_epoch = recorded
+        sk.substep_forward.launches = sk.substep_vjp.launches = 0
+        trainer.train()
+        recs[0]["stats"] = {"actor_loss": trainer.scalars["actor_loss"][0][2]}
+        stat_rel, par_rel = against_one_process(label, recs[:1],
+                                                records[label][0])
+        if any(r["launches"] != TRAINERS[label]["launches"] for r in recs):
+            raise RuntimeError(f"multi: the NCCL world of one launched "
+                               f"{[r['launches'] for r in recs]}")
+        if recs[1]["syncs"]:
+            raise RuntimeError(f"multi: {recs[1]['syncs']} host syncs in "
+                               f"the NCCL world of one's second epoch")
+        launches[f"multi {label} NCCL world of 1"] = tuple(
+            map(sum, zip(*(r["launches"] for r in recs))))
+        shutil.rmtree(cfg["params"]["general"]["logdir"], ignore_errors=True)
+        del trainer
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("multi", f"{label} multi_gpu at world size 1 on NCCL (this "
+          f"process), {len(recs)} epochs: seconds per epoch "
+          + ", ".join(f"{r['s']:.3f}" for r in recs) + "; host syncs in "
+          f"train_epoch " + ", ".join(str(r["syncs"]) for r in recs)
+          + f"; first epoch's actor loss vs one process relative "
+          f"{stat_rel:.3e}, parameters {par_rel:.3e} (bounds "
+          f"{MULTI[label][1]}, {MULTI[label][2]}) | {card}")
+    return launches
+
+
+def check_serve(trainer, dev, gen, card):
+    """The serve phase: the trained SHAC Ant policy saved as a checkpoint
+    (Trainer.save), built by utils.export.shac_policy_fn, exported with
+    export_fn on the card, loaded and served by serve_policy's server in a
+    thread; batches of 1, 64 and 4096 observations POSTed to /act, the
+    actions held at 1e-6 against the trainer's actor (obs normalized ->
+    mean -> tanh); then a 404 and a 400. Returns ms per request by
+    batch."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from diffrl_tpu_torch.serve_policy import make_server
+    from diffrl_tpu_torch.utils.export import (export_fn, load_exported,
+                                               shac_policy_fn)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    trainer.log_dir = tmp
+    trainer.save("final_policy")
+    cfg, _ = trainer_cfg("SHAC Ant")
+    policy, obs_dim, act_dim = shac_policy_fn(
+        os.path.join(tmp, "final_policy.pt"), cfg, device=dev)
+    artifact = os.path.join(tmp, "policy.pt2")
+    t0 = time.perf_counter()
+    export_fn(policy, (torch.zeros((2, obs_dim), device=dev),),
+              path=artifact)
+    export_s = time.perf_counter() - t0
+    server = make_server(load_exported(artifact), 0, dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    ms, errs = {}, {}
+    try:
+        for batch in (1, 64, 4096):
+            obs = torch.randn((batch, obs_dim), generator=gen, device=dev)
+            with torch.no_grad():
+                want = torch.tanh(trainer.actor(
+                    trainer.obs_rms.normalize(obs), deterministic=True))
+            body = json.dumps({"obs": obs.cpu().tolist()}).encode()
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                code, reply = post("/act", body)
+                times.append((time.perf_counter() - t) * 1e3)
+                if code != 200:
+                    raise RuntimeError(f"serve: /act answered {code} "
+                                       f"{reply[:500]}")
+            got = torch.tensor(json.loads(reply)["actions"],
+                               dtype=torch.float32)
+            errs[batch] = assert_close(f"serve batch {batch}", got,
+                                       want.cpu(), 1e-6, 1e-6)
+            ms[batch] = statistics.median(times)
+        if post("/other", b"{}")[0] != 404 or post("/act", b"x")[0] != 400:
+            raise RuntimeError("serve: a bad path or body was not refused")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("serve", f"SHAC Ant policy ({obs_dim} obs -> {act_dim} actions) "
+          f"exported with torch.export on {dev} in {export_s:.2f} s, served "
+          f"over HTTP: " + ", ".join(
+              f"batch {b} {ms[b]:.2f} ms per request (median of 3), max err "
+              f"{errs[b]:.2e}" for b in ms) + f" (held at 1e-6) | {card}")
+    return ms
+
+
+def check_profile(trainer, card):
+    """The profile phase: one SHAC Ant epoch (train_epoch) under
+    utils.profiling.trace() on the card; the top 15 device ops by time
+    (profiling.summarize over the trace's device events), K1's and K2's
+    kernels found among them by name with their rank, and the device-busy
+    share of the traced window. Returns (busy share, rows, launches)."""
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+    from diffrl_tpu_torch.utils import profiling
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    torch.cuda.synchronize()
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir, device=trainer.device):
+        trainer.train_epoch()
+    traced_s = time.perf_counter() - t0
+    launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
+    size = sum(os.path.getsize(os.path.join(log_dir, f))
+               for f in os.listdir(log_dir))
+    t0 = time.perf_counter()
+    events = profiling.load_trace(log_dir)
+    rows = profiling.summarize(events, None, profiling.DEVICE_CATEGORIES)
+    busy = profiling.device_busy_share(events)
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(log_dir)
+    if launches != TRAINERS["SHAC Ant"]["launches"]:
+        raise RuntimeError(f"profile: launches {launches}")
+    found = {}
+    for k in ("substep_forward_kernel", "substep_vjp_kernel"):
+        hits = [(i, r) for i, r in enumerate(rows) if k in r[2]]
+        if len(hits) != 1 or hits[0][1][1] != TRAINERS["SHAC Ant"][
+                "launches"][0]:
+            raise RuntimeError(f"profile: {k} in the trace's device ops: "
+                               f"{hits}")
+        found[k] = hits[0]
+    device_ms = sum(ms for ms, _, _ in rows)
+    phase("profile", f"one SHAC Ant epoch (E={E}) under torch.profiler: "
+          f"{traced_s:.1f} s traced (the trace's export included), a "
+          f"{size / 1e6:.1f} MB trace of {len(events)} events read in "
+          f"{read_s:.1f} s; {len(rows)} device op names, "
+          f"{sum(c for _, c, _ in rows)} device ops, {device_ms:.1f} ms; "
+          f"device busy {100 * busy:.2f} % of the traced window; "
+          + "; ".join(f"{k} #{i + 1} {ms:.2f} ms x{c}"
+                      for k, (i, (ms, c, _)) in found.items())
+          + "; top 15 device ops: "
+          + "; ".join(f"{n[:70]} {ms:.1f} ms x{c}" for ms, c, n in rows[:15])
+          + f" | {card}")
+    return busy, rows[:15], launches
+
+
+def check_render(env, act_fn, steps, card):
+    """The render phase: ``steps`` deterministic env steps of the main
+    phase's policy on its env from a reset, env 0 recorded into a .usda
+    stage and an HTML viewer; the frame counts held. Returns K1 launches."""
+    from diffrl_tpu_torch.render import UsdRenderer
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+    from diffrl_tpu_torch.sim.model import State
+    from diffrl_tpu_torch.viewer import HtmlViewer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_render_")
+    usd = UsdRenderer(env.model, os.path.join(tmp, "ant.usda"))
+    html = HtmlViewer(env.model, os.path.join(tmp, "ant.html"))
+    state = env.reset()
+    torch.cuda.synchronize()
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(steps):
+            obs = env.batch_observations(state)
+            state, *_ = env.step(state, act_fn(obs, None))
+            frame = State(joint_q=state.joint_q[0])
+            usd.update(frame, (i + 1) * env.dt)
+            html.update(frame, (i + 1) * env.dt)
+    launches = sk.substep_forward.launches
+    text = open(usd.save()).read()
+    data = open(html.save()).read()
+    render_s = time.perf_counter() - t0
+    shutil.rmtree(tmp)
+    frames = text.count(": (") // (2 * len(usd._bodies))
+    n_html = json.loads(data.split("const DATA = ", 1)[1].split(";\n", 1)[0]
+                        )["bodies"]
+    if frames != steps or len(n_html) != steps:
+        raise RuntimeError(f"render: {frames} USD frames and {len(n_html)} "
+                           f"HTML frames, expected {steps}")
+    if launches != steps * (MM - 1) or sk.substep_vjp.launches:
+        raise RuntimeError(f"render: K1 launched {launches} times")
+    phase("render", f"Ant E={env.num_envs}: {steps} policy steps, env 0 into "
+          f"a .usda ({len(text)} B, {frames} frames of {len(usd._bodies)} "
+          f"bodies) and an HTML viewer ({len(data)} B, {len(n_html)} frames)"
+          f" in {render_s:.2f} s; K1 launches {launches} | {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1805,12 +2246,18 @@ def main() -> int:
           f"deterministic: {eval_s:.3f} s, {E * EVAL_STEPS / eval_s:.1f} "
           f"env-steps/s, mean reward {mean_rew:.4f}, mean length "
           f"{mean_len:.2f}, substep_forward launches {launches} | {card}")
+    # the rollout's policy again from a reset, env 0 rendered
+    paths = {"render": (check_render(
+        eval_env, policy_act_fn(actor, obs_rms, deterministic=True),
+        EVAL_STEPS, card), 0)}
 
     # 7. the training paths, each path's counts read alone, and one more
     # epoch of some split into its phases
     records, splits = {}, {}
     for label, spec in TRAINERS.items():
         trainer, records[label] = train(label, dev, card, gen)
+        if label == "SHAC Ant":
+            ant_trainer = trainer       # for the serve and profile phases
         if spec["split"]:
             splits[label], syncs = split(label, trainer)
             phase("timing", f"one more {label} epoch, host waiting after "
@@ -1831,6 +2278,18 @@ def main() -> int:
               f"{rew:.3f} (JAX's test holds > {least}; random 2, best 8) | "
               f"{card}")
         del ppo
+
+    # 7c. data-parallel training over torch.distributed; serving the
+    # trained SHAC Ant policy; one SHAC Ant epoch under the profiler
+    t_new = time.perf_counter()
+    paths.update(check_multi(records, card))
+    check_serve(ant_trainer, dev, gen, card)
+    busy, _, paths["profile SHAC Ant epoch"] = check_profile(ant_trainer,
+                                                             card)
+    del ant_trainer
+    torch.cuda.empty_cache()
+    phase("multi", f"phases multi, serve and profile in "
+          f"{time.perf_counter() - t_new:.1f} s")
 
     # 8. timings at the main path's shapes: device time with the host
     # queued ahead (median of repeated batches), per-call time as a caller
@@ -1916,7 +2375,9 @@ def main() -> int:
                        for label, spec in TRAINERS.items()
                        if spec["model"] == name},
                     **({f"env step grad {b}": backwards[b][4][i]
-                        for b in BACKWARDS} if name == "Ant" else {})},
+                        for b in BACKWARDS} if name == "Ant" else {}),
+                    **({p: int(v[i]) for p, v in paths.items()}
+                       if name == "Ant" else {})},
                 "max_abs_err": checks[name]["err_fwd" if i == 0
                                             else "err_vjp"],
                 **times[name][kname],
@@ -1933,4 +2394,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-rank"]:
+        sys.exit(multi_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -38,7 +38,6 @@ from .. import default_device, optim
 from .. import envs as env_registry
 from ..models import ActorDeterministicMLP, ActorStochasticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
-from ..utils.tb import TBWriter
 from .shac import _global_norm, clip_and_step, linear_schedule
 from .trainer import Trainer
 
@@ -91,7 +90,7 @@ class BPTT(Trainer):
         self.grad_norm = config.get("grad_norm", 1.0)
         self.name = config.get("name", "bptt")
         self.log_dir = general.get("logdir", "./logs")
-        os.makedirs(self.log_dir, exist_ok=True)
+        self._make_log_dir()
         self.save_interval = config.get("save_interval", 500)
 
         self.generator = torch.Generator(device=self.device)
@@ -135,7 +134,6 @@ class BPTT(Trainer):
         self.actor_loss = np.inf
         self.time_report = TimeReport()
         self.scalars: Dict[str, list] = {}
-        self.writer = TBWriter(os.path.join(self.log_dir, "log"))
 
     # ------------------------------------------------------------ one epoch
 
@@ -416,7 +414,8 @@ class BPTT(Trainer):
         self.actor.load_state_dict(state["actor"])
         if state.get("obs_rms") is not None:
             self.obs_rms.load_state_dict(state["obs_rms"])
-        self.actor_opt.load_state_dict(state["actor_opt_state"])
+        if state.get("actor_opt_state") is not None:   # not in a JAX
+            self.actor_opt.load_state_dict(state["actor_opt_state"])
         self.actor_updates = state.get("actor_updates", 0)
         self.iter_count = state.get("iter_count", 0)
         self.step_count = state.get("step_count", 0)

@@ -26,16 +26,26 @@ chunks of ``seq_length`` steps of one env (``seq_length`` must divide
 chunk with the state zeroed after a done step. Without any of those the
 network is the shared-trunk ``ActorCriticPPO``.
 
-``multi_gpu`` is not ported (ROADMAP A7). Random draws (action noise and
-samples, permutations) come from one ``torch.Generator`` on the trainer's
-device, or from the ``noise`` and ``perms`` arguments of ``train_epoch``
-(``noise`` on the ActorCriticPPO path only).
+Random draws (action noise and samples, permutations) come from one
+``torch.Generator`` on the trainer's device, or from the ``noise`` and
+``perms`` arguments of ``train_epoch`` (``noise`` on the ActorCriticPPO
+path only).
+
+``multi_gpu`` (or ``shard_over_mesh``) makes the trainer one rank of a
+data mesh (``parallel.mesh``) on both network paths: it keeps its rows of
+the env batch (and of the recurrent state) and a replica of the network.
+The ranks draw the global batch's noise and samples and the global
+minibatch permutations (over rows, or over sequence chunks) and keep their
+rows; each minibatch's means are taken over the global minibatch, the
+gradients and loss terms summed in one flat all-reduce, so the KL that
+adapts the learning rate is global; advantages are normalized by the
+global mean and std, the observation and value statistics merged, and the
+ended episodes gathered. Only rank 0 writes files.
 """
 
 from __future__ import annotations
 
 import copy
-import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -44,11 +54,11 @@ import torch
 
 from .. import default_device, optim
 from .. import envs as env_registry
+from ..parallel import mesh as mesh_lib
 from ..envs.base import clip
 from ..models import A2CNetwork, ActorCriticPPO
 from ..models.builders import mask_hidden
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
-from ..utils.tb import TBWriter
 from .shac import _global_norm
 from .trainer import Trainer
 
@@ -68,10 +78,12 @@ def gae(rews, dones, values, last_value, gamma, tau):
     return torch.stack(advs)
 
 
-def normalize_advantages(adv):
+def normalize_advantages(adv, mesh=None):
     """(adv - mean) / (std + 1e-8) with the population std (jnp.std's ddof
-    0; torch.std's default is 1)."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    0; torch.std's default is 1); under a ``mesh`` the global batch's mean
+    and std (parallel.mesh.moments)."""
+    mean, var = mesh_lib.moments(mesh, adv.reshape(-1))
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
 
 
 def tree_map(fn, *trees):
@@ -106,15 +118,14 @@ class PPO(Trainer):
         space = net_cfg.get("space", {})
         self.use_builder = ("discrete" in space or "multi_discrete" in space
                             or "cnn" in net_cfg or "rnn" in net_cfg)
-        if config.get("multi_gpu", False):
-            raise NotImplementedError(
-                "multi_gpu: the port trains on one card (ROADMAP A7)")
+        multi_gpu = config.get("multi_gpu", False)
         self.seed = general.get("seed", 0)
         if env is not None:
             self.env = env
             self.device = env.device
         else:
-            self.device = default_device(device)
+            self.device = (mesh_lib.local_device(device) if multi_gpu
+                           else default_device(device))
             diff_env = params["diff_env"]
             self.env = env_registry.make(
                 diff_env["name"],
@@ -156,7 +167,7 @@ class PPO(Trainer):
             raise ValueError("minibatch_size must divide steps_num*num_actors")
         self.num_minibatches = batch // self.minibatch_size
         self.log_dir = general.get("logdir", "./logs")
-        os.makedirs(self.log_dir, exist_ok=True)
+        self._make_log_dir()
         self.save_interval = config.get("save_frequency", 400)
 
         self.generator = torch.Generator(device=self.device)
@@ -191,6 +202,11 @@ class PPO(Trainer):
             self.episode_trackers["rnn"] = self.network.initial_rnn_state(
                 (self.num_envs,))
 
+        # the reference's `multi_gpu` flag (Horovod there)
+        self.mesh = None
+        if multi_gpu:
+            self.shard_over_mesh()
+
         self.iter_count = 0
         self.step_count = 0
         self.episode_rew_meter = AverageMeter(1, 100)
@@ -198,7 +214,25 @@ class PPO(Trainer):
         self.best_rew = -np.inf
         self.time_report = TimeReport()
         self.scalars: Dict[str, list] = {}
-        self.writer = TBWriter(os.path.join(self.log_dir, "log"))
+
+    def shard_over_mesh(self, num_devices=None):
+        """Make this trainer one rank of a data mesh over the default
+        process group (a world of one without a group): the env (which must
+        have ``shard(rank, size)``), its state and the trackers keep this
+        rank's rows, the network and statistics take rank 0's values.
+        ``num_envs`` stays the global count."""
+        self.mesh = mesh_lib.make_data_mesh(num_devices, device=self.device)
+        if self.num_envs % self.mesh.size:
+            raise ValueError(f"num_envs={self.num_envs} not divisible by "
+                             f"mesh size {self.mesh.size}")
+        self.env.shard(self.mesh.rank, self.mesh.size)
+        self.env_state = mesh_lib.shard_env_axis(self.mesh, self.env_state,
+                                                 self.num_envs)
+        self.episode_trackers = mesh_lib.shard_env_axis(
+            self.mesh, self.episode_trackers, self.num_envs)
+        mesh_lib.replicate(self.mesh, [
+            m for m in (self.network, self.obs_rms, self.val_rms)
+            if m is not None])
 
     # ------------------------------------------------------------ one epoch
 
@@ -229,14 +263,15 @@ class PPO(Trainer):
         for i in range(self.steps_num):
             obs_n = norm(obs)
             mu, sigma, value = net(obs_n)
-            eps = noise[i] if noise is not None else torch.randn(
-                mu.shape, generator=self.generator, device=mu.device)
+            eps = noise[i] if noise is not None else mesh_lib.draw(
+                self.mesh, lambda s: torch.randn(
+                    s, generator=self.generator, device=mu.device), mu.shape)
             actions = mu + sigma * eps
             logp = net.log_prob(mu, sigma, actions)
             env_state, obs, rew_raw, done, _ = env.step(
                 env_state, clip(actions, -1.0, 1.0))
             if self.obs_rms is not None:
-                self.obs_rms.update(obs)
+                self.obs_rms.update(obs, self.mesh)
             ep_rew = trk["ep_rew"] + rew_raw
             ep_len = trk["ep_len"] + 1
             z = torch.zeros_like(ep_rew)
@@ -254,39 +289,43 @@ class PPO(Trainer):
         return {k: torch.stack(v) for k, v in outs.items()}, last_value
 
     def minibatch_loss(self, obs, actions, old_logp, advantages, returns,
-                       old_values, old_mu, old_sigma):
-        """(loss, actor loss, critic loss, entropy, KL(old || new))."""
+                       old_values, old_mu, old_sigma, own=None):
+        """(loss, actor loss, critic loss, entropy, KL(old || new)); under a
+        mesh ``own`` marks the rows this rank holds and each mean is its
+        part of the global minibatch's (parallel.mesh.masked_mean)."""
         net = self.network
         mu, sigma, value = net(obs)
         a_loss, c_loss = self._ppo_losses(net.log_prob(mu, sigma, actions),
                                           old_logp, advantages, value,
-                                          old_values, returns)
+                                          old_values, returns, own)
         zero = mu.new_zeros(())
-        b_loss = (torch.maximum(mu - 1.1, zero) ** 2
-                  + torch.maximum(-1.1 - mu, zero) ** 2).sum(-1).mean()
-        entropy = net.entropy(sigma).mean()
+        b_loss = mesh_lib.masked_mean(
+            (torch.maximum(mu - 1.1, zero) ** 2
+             + torch.maximum(-1.1 - mu, zero) ** 2).sum(-1), own)
+        entropy = mesh_lib.masked_mean(net.entropy(sigma), own)
         loss = (a_loss + 0.5 * c_loss * self.critic_coef
                 - self.entropy_coef * entropy
                 + self.bounds_loss_coef * b_loss)
-        kl = torch.mean(torch.sum(
+        kl = mesh_lib.masked_mean(torch.sum(
             torch.log(sigma / old_sigma)
             + (old_sigma ** 2 + (mu - old_mu) ** 2) / (2.0 * sigma ** 2)
-            - 0.5, dim=-1))
+            - 0.5, dim=-1), own)
         return loss, a_loss, c_loss, entropy, kl.detach()
 
-    def _ppo_losses(self, logp, old_logp, adv, value, old_value, ret):
+    def _ppo_losses(self, logp, old_logp, adv, value, old_value, ret,
+                    own=None):
         """The clipped surrogate's loss and the (clipped) value loss."""
         ratio = torch.exp(logp - old_logp)
         surr1 = adv * ratio
         surr2 = adv * clip(ratio, 1.0 - self.e_clip, 1.0 + self.e_clip)
-        a_loss = -torch.minimum(surr1, surr2).mean()
+        a_loss = -mesh_lib.masked_mean(torch.minimum(surr1, surr2), own)
         if self.clip_value:
             v_clipped = old_value + clip(value - old_value, -self.e_clip,
                                          self.e_clip)
-            c_loss = torch.maximum((value - ret) ** 2,
-                                   (v_clipped - ret) ** 2).mean()
+            c_loss = mesh_lib.masked_mean(torch.maximum(
+                (value - ret) ** 2, (v_clipped - ret) ** 2), own)
         else:
-            c_loss = ((value - ret) ** 2).mean()
+            c_loss = mesh_lib.masked_mean((value - ret) ** 2, own)
         return a_loss, c_loss
 
     def _returns(self, outs, last_value):
@@ -297,7 +336,7 @@ class PPO(Trainer):
         returns = advs + outs["value"]
         values_n, returns_n = outs["value"], returns
         if self.val_rms is not None:
-            self.val_rms.update(returns)
+            self.val_rms.update(returns, self.mesh)
             values_n = self.val_rms.normalize(values_n)
             returns_n = self.val_rms.normalize(returns_n)
         return advs, values_n, returns_n
@@ -311,13 +350,15 @@ class PPO(Trainer):
         if self.use_builder:
             return self._update_builder(outs, last_value, perms)
         advs, values_n, returns_n = self._returns(outs, last_value)
-        B = self.steps_num * self.num_envs
-        flat = [outs["obs"].reshape(B, -1), outs["actions"].reshape(B, -1),
-                outs["logp"].reshape(B), advs.reshape(B), returns_n.reshape(B),
-                values_n.reshape(B), outs["mu"].reshape(B, -1),
-                outs["sigma"].reshape(B, -1)]
+        B = self.steps_num * self.num_envs           # the global batch
+        Bl = self.steps_num * self.env.num_envs      # this rank's rows
+        flat = [outs["obs"].reshape(Bl, -1),
+                outs["actions"].reshape(Bl, -1), outs["logp"].reshape(Bl),
+                advs.reshape(Bl), returns_n.reshape(Bl),
+                values_n.reshape(Bl), outs["mu"].reshape(Bl, -1),
+                outs["sigma"].reshape(Bl, -1)]
         if self.normalize_advantage:
-            flat[3] = normalize_advantages(flat[3])
+            flat[3] = normalize_advantages(flat[3], self.mesh)
         params = list(self.network.parameters())
         stats = []
         for e in range(self.mini_epochs):
@@ -325,25 +366,33 @@ class PPO(Trainer):
                 B, generator=self.generator, device=self.device)
             for idx in perm.reshape(self.num_minibatches,
                                     self.minibatch_size):
+                rows, own = mesh_lib.local_rows(self.mesh, idx,
+                                                self.num_envs)
                 stats.append(self._minibatch_step(
-                    params, *self.minibatch_loss(*(x[idx] for x in flat))))
+                    params, *self.minibatch_loss(*(x[rows] for x in flat),
+                                                 own=own)))
         return torch.stack(stats, dim=1)
 
     def _minibatch_step(self, params, loss, a_l, c_l, entropy, kl):
         """One clipped Adam step at the carried learning rate, which the KL
-        then adapts; returns (loss, actor loss, critic loss, kl)."""
+        then adapts; returns (loss, actor loss, critic loss, kl), summed
+        over the mesh with the gradients."""
         grads = torch.autograd.grad(loss, params)
+        for p, g in zip(params, grads):
+            p.grad = g
+        stats = mesh_lib.all_reduce_grads(self.mesh, params, torch.stack(
+            [loss.detach(), a_l.detach(), c_l.detach(), kl]))
+        grads = [p.grad for p in params]
         if self.truncate_grads:
             scale = torch.clamp(self.grad_norm / (
                 _global_norm(grads) + 1e-12), max=1.0)
-            grads = [g * scale for g in grads]
-        for p, g in zip(params, grads):
-            p.grad = g
+            for p, g in zip(params, grads):
+                p.grad = g * scale
         self.opt.param_groups[0]["lr"] = self.cur_lr
         self.opt.step()
         if self.lr_schedule == "adaptive":
-            self.cur_lr = adapt_lr(self.cur_lr, kl, self.kl_threshold)
-        return torch.stack([loss.detach(), a_l.detach(), c_l.detach(), kl])
+            self.cur_lr = adapt_lr(self.cur_lr, stats[3], self.kl_threshold)
+        return stats
 
     # ---------------------------------------------- the A2CNetwork path
 
@@ -366,13 +415,13 @@ class PPO(Trainer):
             rnn_state = trk.get("rnn")
             obs_n = norm(obs)
             head, value, new_rnn = net(obs_n, rnn_state)
-            actions = net.sample(head, self.generator)
+            actions = net.sample(head, self.generator, self.mesh)
             logp = net.log_prob(head, actions)
             env_state, obs, rew_raw, done, _ = env.step(
                 env_state, clip(actions, -1.0, 1.0) if continuous
                 else actions)
             if self.obs_rms is not None:
-                self.obs_rms.update(obs)
+                self.obs_rms.update(obs, self.mesh)
             ep_rew = trk["ep_rew"] + rew_raw
             ep_len = trk["ep_len"] + 1
             z = torch.zeros_like(ep_rew)
@@ -396,11 +445,11 @@ class PPO(Trainer):
         return (tree_map(lambda *xs: torch.stack(xs), *records),
                 self._norm_val(last_value, un=True))
 
-    def builder_loss(self, batch):
+    def builder_loss(self, batch, own=None):
         """(loss, actor loss, critic loss, entropy, KL(old || new)) of one
         minibatch of the A2CNetwork path: rows of steps, or with a
         recurrent layer [mb, seq_length, ...] chunks run from their
-        recorded state."""
+        recorded state. ``own`` as in minibatch_loss."""
         net = self.network
         if not net.rnn_name:
             head, value, _ = net(batch["obs"])
@@ -415,16 +464,18 @@ class PPO(Trainer):
             value = torch.stack(values, dim=1)
         a_loss, c_loss = self._ppo_losses(
             net.log_prob(head, batch["actions"]), batch["logp"],
-            batch["adv"], value, batch["value"], batch["ret"])
-        entropy = net.entropy(head).mean()
+            batch["adv"], value, batch["value"], batch["ret"], own)
+        entropy = mesh_lib.masked_mean(net.entropy(head), own)
         loss = (a_loss + 0.5 * c_loss * self.critic_coef
                 - self.entropy_coef * entropy)
         if net.space == "continuous":
             mu, zero = head[0], head[0].new_zeros(())
-            b_loss = (torch.maximum(mu - 1.1, zero) ** 2
-                      + torch.maximum(-1.1 - mu, zero) ** 2).sum(-1).mean()
+            b_loss = mesh_lib.masked_mean(
+                (torch.maximum(mu - 1.1, zero) ** 2
+                 + torch.maximum(-1.1 - mu, zero) ** 2).sum(-1), own)
             loss = loss + self.bounds_loss_coef * b_loss
-        kl = net.kl(batch["head"], head)
+        kl = mesh_lib.masked_mean(net.kl(batch["head"], head, mean=False),
+                                  own)
         return loss, a_loss, c_loss, entropy, kl.detach()
 
     def _update_builder(self, outs, last_value, perms=None):
@@ -435,8 +486,8 @@ class PPO(Trainer):
         ``perms[e]`` permutes mini-epoch e's rows or chunks."""
         advs, values_n, returns_n = self._returns(outs, last_value)
         if self.normalize_advantage:
-            advs = normalize_advantages(advs)
-        H, E = self.steps_num, self.num_envs
+            advs = normalize_advantages(advs, self.mesh)
+        H, E = self.steps_num, self.env.num_envs
         data = dict(obs=outs["obs"], actions=outs["actions"],
                     logp=outs["logp"], head=outs["head"], adv=advs,
                     ret=returns_n, value=values_n, done=outs["done"])
@@ -450,11 +501,12 @@ class PPO(Trainer):
             data["rnn"] = tree_map(
                 lambda x: x.reshape((H // seq, seq, E) + x.shape[2:])[:, 0]
                 .reshape((H // seq * E,) + x.shape[2:]), outs["rnn"])
-            B, mb = H // seq * E, max(1, self.minibatch_size // seq)
+            B, mb = H // seq * self.num_envs, max(1,
+                                                  self.minibatch_size // seq)
         else:
             data = tree_map(lambda x: x.reshape((H * E,) + x.shape[2:]),
                             data)
-            B, mb = H * E, self.minibatch_size
+            B, mb = H * self.num_envs, self.minibatch_size
         nmb = max(1, B // mb)
         params = list(self.network.parameters())
         stats = []
@@ -462,9 +514,11 @@ class PPO(Trainer):
             perm = perms[e] if perms is not None else torch.randperm(
                 B, generator=self.generator, device=self.device)
             for idx in perm[:nmb * mb].reshape(nmb, mb):
-                batch = tree_map(lambda x: x[idx], data)
-                stats.append(self._minibatch_step(params,
-                                                  *self.builder_loss(batch)))
+                rows, own = mesh_lib.local_rows(self.mesh, idx,
+                                                self.num_envs)
+                batch = tree_map(lambda x: x[rows], data)
+                stats.append(self._minibatch_step(
+                    params, *self.builder_loss(batch, own)))
         return torch.stack(stats, dim=1)
 
     def train_epoch(self, noise: Optional[torch.Tensor] = None,
@@ -499,11 +553,13 @@ class PPO(Trainer):
         """Host-side half of one epoch: one transfer of the statistics,
         meters, best-policy snapshot, logging."""
         n = self.steps_num * self.num_envs
+        episodes = mesh_lib.gather_envs(self.mesh, torch.stack([
+            stats["done"], stats["ep_rew_done"],
+            stats["ep_len_done"].to(torch.float32)]))
         host = torch.cat([
             torch.stack([stats[k] for k in ("loss", "a_loss", "c_loss", "kl",
                                             "cur_lr")]),
-            stats["done"].reshape(-1), stats["ep_rew_done"].reshape(-1),
-            stats["ep_len_done"].to(torch.float32).reshape(-1)]).cpu().numpy()
+            episodes.reshape(-1)]).cpu().numpy()
         loss, a_loss, c_loss, kl, cur_lr = (float(x) for x in host[:5])
         done, ep_rews, ep_lens = host[5:].reshape(3, n)
         self.iter_count += 1
@@ -569,8 +625,8 @@ class PPO(Trainer):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed + 2)
         env_state = env.reset()
-        rnn = net.initial_rnn_state((self.num_envs,))
-        ep_rew = torch.zeros(self.num_envs, device=self.device)
+        rnn = net.initial_rnn_state((env.num_envs,))
+        ep_rew = torch.zeros(env.num_envs, device=self.device)
         ep_len = torch.zeros_like(ep_rew)
         done_seen = torch.zeros_like(ep_rew)
         for _ in range(env.episode_length):

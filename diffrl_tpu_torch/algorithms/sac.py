@@ -12,6 +12,9 @@ importance weights, then the actor against the updated critic, then alpha,
 then the Polyak target. The stored successor is the pre-reset observation,
 nan_to_num-ed and clipped to +-1e6.
 
+``multi_gpu`` is accepted and not read: like the JAX trainer, SAC trains
+on the config's envs in one process.
+
 Random draws come from one ``torch.Generator`` on the trainer's device, or
 per env step from the ``draws`` argument of ``train_epoch``: "actions"
 (the seed phase's uniform actions in [-1, 1], else the actor's standard
@@ -23,7 +26,6 @@ from __future__ import annotations
 
 import copy
 import math
-import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -36,7 +38,6 @@ from .. import envs as env_registry
 from ..envs.base import clip
 from ..models import DoubleCriticMLP, SACActor
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
-from ..utils.tb import TBWriter
 from . import replay
 from .trainer import Trainer
 
@@ -46,9 +47,6 @@ class SAC(Trainer):
         params = cfg["params"]
         general = params.get("general", {})
         config = params["config"]
-        if config.get("multi_gpu", False):
-            raise NotImplementedError(
-                "multi_gpu: the port trains on one card (ROADMAP A7)")
         self.seed = general.get("seed", 0)
         if env is not None:
             self.env = env
@@ -91,7 +89,7 @@ class SAC(Trainer):
         self.prio_alpha = config.get("priority_alpha", 0.6)
         self.prio_beta = config.get("priority_beta", 0.4)
         self.log_dir = general.get("logdir", "./logs")
-        os.makedirs(self.log_dir, exist_ok=True)
+        self._make_log_dir()
         self.save_interval = config.get("save_frequency", 0)
 
         self.generator = torch.Generator(device=self.device)
@@ -130,7 +128,6 @@ class SAC(Trainer):
         self.best_rew = -np.inf
         self.time_report = TimeReport()
         self.scalars: Dict[str, list] = {}
-        self.writer = TBWriter(os.path.join(self.log_dir, "log"))
 
     # ------------------------------------------------------------ one epoch
 

@@ -17,6 +17,17 @@ optimizer's step count before each update.
 Random draws (actor noise, critic permutations) come from one
 ``torch.Generator`` on the trainer's device; env resets from the env's own.
 The host reads the epoch's statistics once, in one transfer.
+
+``multi_gpu`` (or ``shard_over_mesh``) makes the trainer one rank of a
+data mesh (``parallel.mesh``): it keeps its rows of the env batch and a
+replica of the learner. The ranks draw the global batch's noise, resets and
+critic permutations and keep their rows; the window loss is the global mean
+(the local sum over the global E, the gradients summed in one flat
+all-reduce before the clip); a critic minibatch is the global
+permutation's, each rank summing the loss of the rows it holds over the
+global minibatch size; the observation and return statistics are merged;
+the ended episodes are gathered, so that every rank takes the same
+decisions, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -31,9 +42,9 @@ import torch
 
 from .. import default_device
 from .. import envs as env_registry
+from ..parallel import mesh as mesh_lib
 from ..models import ActorDeterministicMLP, ActorStochasticMLP, CriticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
-from ..utils.tb import TBWriter
 from .trainer import Trainer
 
 
@@ -50,8 +61,9 @@ def _global_norm(grads):
 
 
 def clip_and_step(optimizer, params: Sequence[torch.Tensor], lr: float,
-                  grad_norm: float, truncate: bool = True):
-    """nan_to_num the gradients in ``params``' .grad, scale them by
+                  grad_norm: float, truncate: bool = True, mesh=None):
+    """Sum the gradients in ``params``' .grad over ``mesh`` (one flat
+    all-reduce; none without a mesh), nan_to_num them, scale them by
     min(1, grad_norm / (norm + 1e-12)) when ``truncate`` (the JAX
     trainers' clip, not clip_grad_norm_'s 1e-6) and take one step of
     ``optimizer`` at ``lr``. A parameter the loss did not reach gets a zero
@@ -61,6 +73,8 @@ def clip_and_step(optimizer, params: Sequence[torch.Tensor], lr: float,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    mesh_lib.all_reduce_grads(mesh, params)
+    for p in params:
         torch.nan_to_num(p.grad, nan=0.0, posinf=0.0, neginf=0.0,
                          out=p.grad)
         grads.append(p.grad)
@@ -83,10 +97,9 @@ class SHAC(Trainer):
         general = params.get("general", {})
         config = params["config"]
         diff_env = params["diff_env"]
-        self.device = default_device(device)
-        if config.get("multi_gpu", False):
-            raise NotImplementedError(
-                "multi_gpu: the port trains on one card (ROADMAP A7)")
+        multi_gpu = config.get("multi_gpu", False)
+        self.device = (mesh_lib.local_device(device) if multi_gpu
+                       else default_device(device))
 
         self.seed = general.get("seed", 0)
         self.env = env_registry.make(
@@ -123,7 +136,7 @@ class SHAC(Trainer):
         self.truncate_grad = config.get("truncate_grads", True)
         self.grad_norm = config.get("grad_norm", 1.0)
         self.log_dir = general.get("logdir", "./logs")
-        os.makedirs(self.log_dir, exist_ok=True)
+        self._make_log_dir()
         self.save_interval = config.get("save_interval", 500)
 
         # networks, initialized from the seed
@@ -172,6 +185,11 @@ class SHAC(Trainer):
             ret=torch.zeros(E, device=dev),
         )
 
+        # multi-device: the reference's `multi_gpu` flag (Horovod there)
+        self.mesh = None
+        if multi_gpu:
+            self.shard_over_mesh()
+
         # logging / meters
         self.iter_count = 0
         self.step_count = 0
@@ -186,7 +204,25 @@ class SHAC(Trainer):
         self.value_loss = np.inf
         self.time_report = TimeReport()
         self.scalars: Dict[str, list] = {}
-        self.writer = TBWriter(os.path.join(self.log_dir, "log"))
+
+    def shard_over_mesh(self, num_devices=None):
+        """Make this trainer one rank of a data mesh over the default
+        process group (a world of one without a group): the env and the
+        episode trackers keep this rank's rows, the networks and
+        statistics take rank 0's values. ``num_envs`` stays the global
+        count."""
+        self.mesh = mesh_lib.make_data_mesh(num_devices, device=self.device)
+        if self.num_envs % self.mesh.size:
+            raise ValueError(f"num_envs={self.num_envs} not divisible by "
+                             f"mesh size {self.mesh.size}")
+        self.env.shard(self.mesh.rank, self.mesh.size)
+        self.env_state = mesh_lib.shard_env_axis(self.mesh, self.env_state,
+                                                 self.num_envs)
+        self.episode_trackers = mesh_lib.shard_env_axis(
+            self.mesh, self.episode_trackers, self.num_envs)
+        mesh_lib.replicate(self.mesh, [
+            m for m in (self.actor, self.critic, self.target_critic,
+                        self.obs_rms, self.ret_rms) if m is not None])
 
     # ------------------------------------------------------------ one epoch
 
@@ -195,14 +231,15 @@ class SHAC(Trainer):
         through the simulator. Returns (loss, outs) with outs the per-step
         [H, E] records the critic and the meters use; advances env_state,
         the trackers and the live obs/return statistics."""
-        env, H, E = self.env, self.steps_num, self.num_envs
+        env, H, E, mesh = self.env, self.steps_num, self.env.num_envs, \
+            self.mesh
         gamma_c = self.gamma
         env_state, obs = env.initialize_trajectory(self.env_state)
 
         rms = None
         if self.obs_rms is not None:
             rms = self.obs_rms.copy()           # frozen for the whole window
-            self.obs_rms.update(obs)
+            self.obs_rms.update(obs, mesh)
         ret_var = self.ret_rms.var.clone() if self.ret_rms is not None \
             else None
 
@@ -219,9 +256,12 @@ class SHAC(Trainer):
         for i in range(H):
             obs_n = norm(obs)
             if self.stochastic_actor:
-                actions = self.actor(
-                    obs_n, deterministic=deterministic,
-                    generator=None if deterministic else self.generator)
+                eps = None if deterministic else mesh_lib.draw(
+                    mesh, lambda s: torch.randn(s, generator=self.generator,
+                                                device=self.device),
+                    (E, self.num_actions))
+                actions = self.actor(obs_n, deterministic=deterministic,
+                                     eps=eps)
             else:
                 actions = self.actor(obs_n)
             actions = torch.tanh(actions)
@@ -230,11 +270,11 @@ class SHAC(Trainer):
                                                                 actions)
             rew = rew_raw * self.rew_scale
             if self.obs_rms is not None:
-                self.obs_rms.update(obs_next)
+                self.obs_rms.update(obs_next, mesh)
             if self.ret_rms is not None:
                 new_ret = trk["ret"] * gamma_c + rew.detach()
                 trk = dict(trk, ret=new_ret)
-                self.ret_rms.update(new_ret)
+                self.ret_rms.update(new_ret, mesh)
                 rew = rew / torch.sqrt(ret_var + 1e-6)
 
             # bootstrap values (branchless, as the JAX trainer)
@@ -283,7 +323,7 @@ class SHAC(Trainer):
                 )
             obs = obs_next
 
-        loss = loss / (H * E)
+        loss = loss / (H * self.num_envs)      # the global mean
         if self.ret_rms is not None:
             loss = loss * torch.sqrt(ret_var + 1e-6)
         self.env_state = env_state.detach()
@@ -293,7 +333,7 @@ class SHAC(Trainer):
     def _clip_and_step(self, optimizer, params: Sequence[torch.Tensor],
                        lr: float):
         return clip_and_step(optimizer, params, lr, self.grad_norm,
-                             self.truncate_grad)
+                             self.truncate_grad, self.mesh)
 
     def actor_step(self, loss):
         """Backward through the window, then one clipped Adam step."""
@@ -339,8 +379,13 @@ class SHAC(Trainer):
         iteration shuffles the whole dataset once (``perms[i]`` when given,
         else a permutation from the trainer's generator) and cuts it into
         contiguous minibatches; a short last batch is padded with copies of
-        the final row at weight 0. Returns the last iteration's mean loss."""
-        n = obs_flat.shape[0]
+        the final row at weight 0. Returns the last iteration's mean loss.
+
+        Under a mesh the rows are this rank's [H x E_local] records and the
+        permutation is over the global H x E: each rank weighs the rows of
+        a minibatch it holds, divides by the global minibatch size, and the
+        gradients are summed over the ranks."""
+        n = obs_flat.shape[0] * (1 if self.mesh is None else self.mesh.size)
         bs = self.batch_size
         nb = (n - 1) // bs + 1
         data = torch.cat([obs_flat, target_flat[:, None]], dim=1)
@@ -351,17 +396,17 @@ class SHAC(Trainer):
         for it in range(self.critic_iterations):
             perm = perms[it] if perms is not None else torch.randperm(
                 n, generator=self.generator, device=data.device)
-            shuffled = data[perm]
             if nb * bs > n:
-                shuffled = torch.cat(
-                    [shuffled, shuffled[-1:].expand(nb * bs - n, -1)])
+                perm = torch.cat([perm, perm[-1:].expand(nb * bs - n)])
             total = torch.zeros((), device=data.device)
             for b in range(nb):
-                d = shuffled[b * bs:(b + 1) * bs]
-                w = weights[b]
+                rows, own = mesh_lib.local_rows(
+                    self.mesh, perm[b * bs:(b + 1) * bs], self.num_envs)
+                d = data[rows]
+                w = weights[b] if own is None else weights[b] * own
                 v = self.critic(d[:, :-1])[..., 0]
                 loss = torch.sum((v - d[:, -1]) ** 2 * w) / torch.clamp(
-                    torch.sum(w), min=1.0)
+                    torch.sum(weights[b]), min=1.0)
                 self.critic_opt.zero_grad(set_to_none=True)
                 loss.backward()
                 lr = (linear_schedule(self.critic_lr, 1e-5,
@@ -372,7 +417,7 @@ class SHAC(Trainer):
                 self.critic_updates += 1
                 total = total + loss.detach()
             value_loss = total / nb
-        return value_loss
+        return mesh_lib.all_reduce_sum(self.mesh, value_loss)
 
     @torch.no_grad()
     def polyak(self):
@@ -399,7 +444,9 @@ class SHAC(Trainer):
         actor_loss, outs = self.rollout()
         gnorm_before, gnorm_after = self.actor_step(actor_loss)
         value_loss = self.critic_step(outs)
-        return dict(actor_loss=actor_loss.detach(), value_loss=value_loss,
+        return dict(actor_loss=mesh_lib.all_reduce_sum(self.mesh,
+                                                       actor_loss.detach()),
+                    value_loss=value_loss,
                     gnorm_before=gnorm_before, gnorm_after=gnorm_after,
                     done=outs["done"], ep_loss_done=outs["ep_loss_done"],
                     ep_disc_done=outs["ep_disc_done"],
@@ -423,6 +470,8 @@ class SHAC(Trainer):
         if self._best_snapshot is not None:
             self.save("best_policy", snapshot=self._best_snapshot)
         self.save("final_policy")
+        if not self.is_writer:
+            return
         for name, his in (("episode_loss_his", self.episode_loss_his),
                           ("episode_discounted_loss_his",
                            self.episode_discounted_loss_his),
@@ -433,14 +482,13 @@ class SHAC(Trainer):
         """Host-side half of one epoch: one transfer of the statistics,
         episode meters, best-policy snapshot, logging."""
         H, E = self.steps_num, self.num_envs
+        episodes = mesh_lib.gather_envs(self.mesh, torch.stack([
+            stats["done"].to(torch.float32), stats["ep_loss_done"],
+            stats["ep_disc_done"], stats["ep_len_done"].to(torch.float32)]))
         host = torch.cat([
             torch.stack([stats["actor_loss"], stats["value_loss"],
                          stats["gnorm_before"], stats["gnorm_after"]]),
-            stats["done"].to(torch.float32).reshape(-1),
-            stats["ep_loss_done"].reshape(-1),
-            stats["ep_disc_done"].reshape(-1),
-            stats["ep_len_done"].to(torch.float32).reshape(-1),
-        ]).cpu().numpy()
+            episodes.reshape(-1)]).cpu().numpy()
         self.actor_loss, self.value_loss, gnorm_before, gnorm_after = (
             float(x) for x in host[:4])
         done, ep_losses, ep_disc, ep_lens = host[4:].reshape(4, H * E)
@@ -548,17 +596,19 @@ class SHAC(Trainer):
 
 
     def load(self, path):
+        """Loads a checkpoint of ``save``. One carried from the JAX package
+        (utils.convert.checkpoint_from_jax) holds the networks, statistics
+        and counters but no optimizer state: the optimizers keep theirs."""
         state = torch.load(path, map_location=self.device)
         self.actor.load_state_dict(state["actor"])
-        self.critic.load_state_dict(state["critic"])
-        self.target_critic.load_state_dict(state["target_critic"])
-        if state.get("obs_rms") is not None:
-            self.obs_rms.load_state_dict(state["obs_rms"])
-        if state.get("ret_rms") is not None:
-            self.ret_rms.load_state_dict(state["ret_rms"])
-        self.actor_opt.load_state_dict(state["actor_opt_state"])
-        self.critic_opt.load_state_dict(state["critic_opt_state"])
-        self.actor_updates = state["actor_updates"]
-        self.critic_updates = state["critic_updates"]
+        for key, obj in (("critic", self.critic),
+                         ("target_critic", self.target_critic),
+                         ("obs_rms", self.obs_rms), ("ret_rms", self.ret_rms),
+                         ("actor_opt_state", self.actor_opt),
+                         ("critic_opt_state", self.critic_opt)):
+            if state.get(key) is not None:
+                obj.load_state_dict(state[key])
+        self.actor_updates = state.get("actor_updates", 0)
+        self.critic_updates = state.get("critic_updates", 0)
         self.iter_count = state.get("iter_count", 0)
         self.step_count = state.get("step_count", 0)

@@ -1,7 +1,7 @@
 """What the port's trainers (SHAC, BPTT, PPO, SAC) share: playing a
 checkpoint, saving a snapshot as ``<log_dir>/<name>.pt`` and logging scalars
 to the TensorBoard writer and ``scalars.npz``, as each JAX trainer does in
-its own copy."""
+its own copy. Under a process group only rank 0 writes files."""
 
 from __future__ import annotations
 
@@ -10,11 +10,28 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import process_rank
+from ..utils.tb import TBWriter
+
 
 class Trainer:
     """Mixin over a trainer with ``log_dir``, ``writer``, ``scalars``,
     ``iter_count``, ``step_count``, ``max_epochs``, ``_snapshot()``,
     ``load(path)`` and ``run(num_games)``."""
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints, histories and logs:
+        rank 0 of a process group, or a process without one."""
+        return process_rank() == 0
+
+    def _make_log_dir(self):
+        """Creates ``log_dir`` and the TensorBoard writer (a writer that
+        writes nothing off rank 0)."""
+        if self.is_writer:
+            os.makedirs(self.log_dir, exist_ok=True)
+        self.writer = TBWriter(os.path.join(self.log_dir, "log")
+                               if self.is_writer else None)
 
     def play(self, cfg):
         """Loads ``cfg``'s general checkpoint and runs the player's
@@ -24,6 +41,8 @@ class Trainer:
             "games_num", 1))
 
     def save(self, filename=None, snapshot=None):
+        if not self.is_writer:
+            return
         filename = filename or "best_policy"
         torch.save(snapshot if snapshot is not None else self._snapshot(),
                    os.path.join(self.log_dir, f"{filename}.pt"))
@@ -35,6 +54,7 @@ class Trainer:
             if np.isfinite(float(v)):
                 self.writer.log(k, float(v), self.iter_count, self.step_count,
                                 time_elapse)
-        if self.iter_count % 50 == 0 or self.iter_count == self.max_epochs:
+        if self.is_writer and (self.iter_count % 50 == 0
+                               or self.iter_count == self.max_epochs):
             np.savez(os.path.join(self.log_dir, "scalars.npz"),
                      **{k: np.array(v) for k, v in self.scalars.items()})

@@ -112,6 +112,12 @@ class DiffEnv:
 
     While ``config.verify_fp`` is set, ``step`` raises FloatingPointError
     on a non-finite output (``config.enable_fp_verification``).
+
+    After ``shard(rank, size)`` the env holds rows ``[rank E/size, (rank +
+    1) E/size)`` of a global batch of E envs: every draw of start states
+    (``reset`` and the in-graph reset) is made for the global batch from
+    the shared-seed generator and this rank's rows kept, so that ``size``
+    ranks draw what one process of E envs draws.
     """
 
     num_obs: int = 0
@@ -134,6 +140,8 @@ class DiffEnv:
     ):
         self.device = default_device(device)
         self.num_envs = num_envs
+        self.global_num_envs = num_envs
+        self.env_rows = slice(0, num_envs)
         self.seed = seed
         self.episode_length = episode_length
         self.stochastic_init = stochastic_init
@@ -155,6 +163,23 @@ class DiffEnv:
                      and self.model.link_count > 0)
             sim_backward = "lb" if lb_ok else "remat"
         self.sim_backward = sim_backward
+
+    def shard(self, rank: int, size: int) -> "DiffEnv":
+        """Make this env rank ``rank``'s shard of ``size``: num_envs becomes
+        the global count over ``size`` (which must divide it)."""
+        n = self.global_num_envs
+        if n % size:
+            raise ValueError(f"num_envs={n} not divisible by {size} ranks")
+        self.num_envs = n // size
+        self.env_rows = slice(rank * self.num_envs,
+                              (rank + 1) * self.num_envs)
+        return self
+
+    def _start_states(self):
+        """This env's rows of ``initial_state`` drawn for the global
+        batch."""
+        q, qd = self.initial_state(self.global_num_envs)
+        return q[self.env_rows], qd[self.env_rows]
 
     # -- batched hooks ---------------------------------------------------------
 
@@ -197,7 +222,7 @@ class DiffEnv:
 
     def reset(self) -> EnvState:
         """Fresh EnvState with all envs at (possibly stochastic) start state."""
-        q, qd = self.initial_state(self.num_envs)
+        q, qd = self._start_states()
         return EnvState(
             joint_q=q,
             joint_qd=qd,
@@ -242,7 +267,7 @@ class DiffEnv:
 
         # in-graph partial reset: fresh states for every env, taken where
         # done; the draws carry no gradient to the past
-        q0, qd0 = (x.detach() for x in self.initial_state(self.num_envs))
+        q0, qd0 = (x.detach() for x in self._start_states())
         d = done[:, None]
         q_safe = torch.where(d, _sanitize(q), q)
         qd_safe = torch.where(d, _sanitize(qd), qd)

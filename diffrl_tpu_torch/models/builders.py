@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..parallel.mesh import draw
 from .mlp import _ACTIVATIONS, MLP
 
 # ---------------------------------------------------------------------------
@@ -171,11 +172,14 @@ def mask_hidden(rnn_state, done):
 # ---------------------------------------------------------------------------
 
 
-def categorical_sample(logits, generator: Optional[torch.Generator] = None):
+def categorical_sample(logits, generator: Optional[torch.Generator] = None,
+                       mesh=None):
     """One draw per row by the Gumbel-max trick (JAX's
-    random.categorical), int64."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=logits.dtype)
+    random.categorical), int64. With a ``mesh`` the uniforms are drawn for
+    the global batch and this rank's rows kept (parallel.mesh.draw)."""
+    u = draw(mesh, lambda s: torch.rand(s, generator=generator,
+                                        device=logits.device,
+                                        dtype=logits.dtype), logits.shape)
     tiny = torch.finfo(logits.dtype).tiny
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
@@ -363,14 +367,18 @@ class A2CNetwork(nn.Module):
 
     # -- distributions ------------------------------------------------------
 
-    def sample(self, head_out, generator: Optional[torch.Generator] = None):
+    def sample(self, head_out, generator: Optional[torch.Generator] = None,
+               mesh=None):
+        """Actions drawn from the head; with a ``mesh`` (a
+        parallel.mesh.DataMesh) the draws are the global batch's, this
+        rank's rows kept."""
         if self.space == "continuous":
             mu, sigma = head_out
-            return mu + sigma * torch.randn(mu.shape, generator=generator,
-                                            device=mu.device)
+            return mu + sigma * draw(mesh, lambda s: torch.randn(
+                s, generator=generator, device=mu.device), mu.shape)
         if self.space == "discrete":
-            return categorical_sample(head_out, generator)
-        return torch.stack([categorical_sample(lg, generator)
+            return categorical_sample(head_out, generator, mesh)
+        return torch.stack([categorical_sample(lg, generator, mesh)
                             for lg in head_out], dim=-1)
 
     def log_prob(self, head_out, actions):
@@ -393,16 +401,19 @@ class A2CNetwork(nn.Module):
             return categorical_entropy(head_out)
         return sum(categorical_entropy(lg) for lg in head_out)
 
-    def kl(self, old_head_out, head_out):
-        """Mean KL(old || new) over the batch, for the adaptive LR."""
+    def kl(self, old_head_out, head_out, mean: bool = True):
+        """Mean KL(old || new) over the batch, for the adaptive LR (with
+        ``mean`` False, per row)."""
         if self.space == "continuous":
             old_mu, old_sigma = old_head_out
             mu, sigma = head_out
-            return torch.mean(torch.sum(
+            kl = torch.sum(
                 torch.log(sigma / old_sigma)
                 + (old_sigma ** 2 + (mu - old_mu) ** 2) / (2.0 * sigma ** 2)
-                - 0.5, dim=-1))
-        if self.space == "discrete":
-            return torch.mean(categorical_kl(old_head_out, head_out))
-        return torch.mean(sum(categorical_kl(o, n)
-                              for o, n in zip(old_head_out, head_out)))
+                - 0.5, dim=-1)
+        elif self.space == "discrete":
+            kl = categorical_kl(old_head_out, head_out)
+        else:
+            kl = sum(categorical_kl(o, n)
+                     for o, n in zip(old_head_out, head_out))
+        return torch.mean(kl) if mean else kl

@@ -86,13 +86,15 @@ class ActorStochasticMLP(nn.Module):
             device=device))
 
     def forward(self, obs, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """mu, or with a generator and not deterministic, a reparameterized
-        sample mu + eps * exp(logstd)."""
+                generator: Optional[torch.Generator] = None, eps=None):
+        """mu, or when not deterministic, a reparameterized sample mu + eps
+        * exp(logstd) with ``eps`` given or drawn from ``generator``."""
         mu = self.mu_net(obs)
-        if deterministic or generator is None:
+        if deterministic or (generator is None and eps is None):
             return mu
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=mu.device)
         return mu + eps * torch.exp(self.logstd)
 
 

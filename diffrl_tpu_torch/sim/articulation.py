@@ -30,7 +30,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import spatial_transform_inertia
+from ..ops import (spatial_transform_inertia, spatial_transform_twist,
+                   transform_inverse)
 from . import articulation_lb as lb
 from . import particles as part
 from .model import Model, State
@@ -148,6 +149,71 @@ def eval_mass_matrix(model: Model, S_s, I_s):
     J = torch.einsum("...df,ld->...lfd", S_s, mask)
     P = torch.einsum("...lfg,...lgd->...lfd", I_s, J)
     return torch.einsum("...lfd,...lfe->...de", J, P)
+
+
+def _symmetric(blocks, like, D):
+    """[E, D, D] from {(d, e): [E] value} of the upper triangle (d <= e),
+    mirrored; zero elsewhere."""
+    zero = like.new_zeros(like.shape[:-2])
+    return torch.stack([torch.stack([
+        blocks.get((min(i, j), max(i, j)), zero) for j in range(D)], -1)
+        for i in range(D)], -2)
+
+
+def eval_mass_matrix_factored(model: Model, S_s, body_X_sm):
+    """H [E, D, D] without the space-frame inertias or the Jacobian (the
+    JAX package's factored form): per link, each ancestor dof's twist in
+    the link's mass frame u = Ad(X_sm^-1) S_d and
+    H[d, e] = sum over links of u_d^T I_m u_e. The same values as
+    eval_mass_matrix(model, S_s, eval_spatial_inertias(model, body_X_sm))
+    up to float reassociation. S_s [E, D, 6], body_X_sm [E, L, 7]."""
+    topo = model.topology
+    mask = np.asarray(topo.ancestor_dof_mask())
+    I_m = np.asarray(model.body_I_m, np.float32)
+    blocks = {}
+    for l in range(topo.link_count):
+        dofs = [d for d in range(topo.dof_count) if mask[l, d]]
+        if not dofs:
+            continue
+        t_inv = transform_inverse(body_X_sm[..., l, :])
+        I3 = torch.as_tensor(I_m[l, 0:3, 0:3], device=S_s.device).to(
+            S_s.dtype)
+        us = [spatial_transform_twist(t_inv, S_s[..., d, :]) for d in dofs]
+        vs = [torch.cat([u[..., 0:3] @ I3.T, float(I_m[l, 3, 3])
+                         * u[..., 3:6]], dim=-1) for u in us]
+        for a, d in enumerate(dofs):
+            for b in range(a, len(dofs)):
+                val = torch.sum(us[a] * vs[b], dim=-1)
+                key = (d, dofs[b])
+                blocks[key] = val if key not in blocks else blocks[key] + val
+    return _symmetric(blocks, S_s, topo.dof_count)
+
+
+def eval_mass_matrix_crba(model: Model, S_s, body_X_sm):
+    """H [E, D, D] by the composite-rigid-body algorithm (the JAX
+    package's eval_mass_matrix_crba): the links' space-frame inertias
+    summed leaf to root into composite inertias I^c, then for each dof d
+    of link l the force F_d = I^c_l S_d and H[d, e] = F_d . S_e for the
+    dofs e <= d on l's path to the root. The same values as
+    eval_mass_matrix up to float reassociation."""
+    topo = model.topology
+    mask = np.asarray(topo.ancestor_dof_mask())
+    L, D = topo.link_count, topo.dof_count
+    I_s = eval_spatial_inertias(model, body_X_sm)
+    Ic = [I_s[..., l, :, :] for l in range(L)]
+    for l in reversed(range(L)):
+        parent = topo.joint_parent[l]
+        if parent >= 0:
+            Ic[parent] = Ic[parent] + Ic[l]
+    starts = list(topo.joint_qd_start[:L]) + [D]
+    blocks = {}
+    for l in range(L):
+        for d in range(starts[l], starts[l + 1]):
+            F = torch.einsum("...ij,...j->...i", Ic[l], S_s[..., d, :])
+            for e in range(d + 1):
+                if mask[l, e]:
+                    blocks[e, d] = torch.sum(F * S_s[..., e, :], dim=-1)
+    return _symmetric(blocks, S_s, D)
 
 
 class DynamicsAux(NamedTuple):

@@ -10,7 +10,9 @@ dispatched by ``algo.name`` through the Runner and trained on CUDA unless
 
 The arguments are train_shac's (``--save-interval`` sets the config's
 save_frequency, ``--play`` with ``--checkpoint``, ``--seed``,
-``--num-envs``, ``--max-epochs``).
+``--num-envs``, ``--max-epochs``). A PPO config with ``multi_gpu: true``
+trains data-parallel under ``torchrun --nproc_per_node N -m
+diffrl_tpu_torch.train_rl``, as train_shac does.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import os
 from typing import Optional, Sequence
 
 from .algorithms import Runner
-from .train_shac import parse_args, prepare
+from .train_shac import finish, parse_args, prepare
 
 
 def get_args(argv: Optional[Sequence[str]] = None):
@@ -33,7 +35,10 @@ def main(argv: Optional[Sequence[str]] = None):
     args = get_args(argv)
     runner = Runner(device=args.device)
     runner.load(prepare(args))
-    return runner.run({"train": not args.play})
+    try:
+        return runner.run({"train": not args.play})
+    finally:
+        finish()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ overrides, trained on CUDA unless ``--device cpu`` is given.
     python -m diffrl_tpu_torch.train_shac --cfg examples/cfg/shac/ant.yaml \\
         --play --checkpoint logs/tiny/<stamp>/final_policy.pt
 
+A config with ``multi_gpu: true`` trains data-parallel under torchrun,
+one rank per card (a world of one without a launcher); only rank 0 writes
+the config, checkpoints and logs:
+
+    torchrun --nproc_per_node 4 -m diffrl_tpu_torch.train_shac \
+        --cfg my_ant_multi_gpu.yaml
+
 ``--save-interval`` overrides the config's save_interval (epochs between
 checkpoints, 0 for none) when given. ``--play`` builds the config's player
 (``player.num_actors`` envs), loads ``--checkpoint`` and evaluates
@@ -19,14 +26,14 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
-import random
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import yaml
 
 from .algorithms import SHAC
+from .parallel.mesh import init_distributed, process_rank
+from .utils.common import seeding
 
 _CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "cfg")
@@ -84,12 +91,15 @@ def build_config(args):
 
 def prepare(args):
     """The arguments' config (build_config), with the host's generators
-    seeded and, for training, the config written next to the logs."""
+    seeded and, for training, the config written next to the logs by rank
+    0. A ``multi_gpu`` config started by a launcher (torchrun sets
+    WORLD_SIZE) joins its process group first."""
     cfg = build_config(args)
-    random.seed(args.seed)
-    np.random.seed(args.seed)
-    torch.manual_seed(args.seed)
-    if not args.play:
+    if cfg["params"]["config"].get("multi_gpu", False) and \
+            "WORLD_SIZE" in os.environ:
+        init_distributed(device=args.device)
+    seeding(args.seed)
+    if not args.play and process_rank() == 0:
         os.makedirs(args.logdir, exist_ok=True)
         with open(os.path.join(args.logdir, "cfg.yaml"), "w") as f:
             yaml.dump(cfg, f)
@@ -101,11 +111,20 @@ def run(trainer_cls, args):
     plays its checkpoint or trains it. Returns the trainer, or what play
     returns."""
     cfg = prepare(args)
-    trainer = trainer_cls(cfg, device=args.device)
-    if args.play:
-        return trainer.play(cfg)
-    trainer.train()
-    return trainer
+    try:
+        trainer = trainer_cls(cfg, device=args.device)
+        if args.play:
+            return trainer.play(cfg)
+        trainer.train()
+        return trainer
+    finally:
+        finish()
+
+
+def finish():
+    """Leaves the process group, if this process joined one."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None):

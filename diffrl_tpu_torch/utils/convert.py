@@ -18,7 +18,8 @@ config-built A2CNetwork is ``{"trunk": {"cnn": [{"w" HWIO, "b"}], "rnn":
 port's OIHW Conv2d permuted. The converters take
 those pytrees with numpy leaves (``jax.device_get`` of the parameters, or
 the arrays read out of a checkpoint by the caller) and never unpickle JAX
-classes themselves.
+classes themselves. ``checkpoint_from_jax`` turns the dict of a JAX
+SHAC/BPTT checkpoint, unpickled by the caller, into the port's checkpoint.
 """
 
 from __future__ import annotations
@@ -198,4 +199,35 @@ def running_mean_std_from_jax(rms: Mapping[str, Any], device=None
     _copy(out.mean, mean, "mean")
     _copy(out.var, get("var"), "var")
     _copy(out.count, get("count"), "count")
+    return out
+
+
+def checkpoint_from_jax(state: Mapping[str, Any], cfg: Dict, path: str
+                        ) -> Dict[str, Any]:
+    """The port's SHAC/BPTT checkpoint (the ``.pt`` of ``Trainer.save``,
+    written to ``path`` and returned) of a JAX one: ``state`` is the dict
+    of the JAX trainer's ``.pkl`` with numpy leaves ("actor", and where
+    present "critic", "target_critic", "obs_rms", "ret_rms" and the
+    counters). ``cfg``'s network names the actor class and the widths. The
+    optimizer states are not carried."""
+    network = cfg.get("params", {}).get("network", {})
+    stochastic = network.get("actor", "ActorStochasticMLP") == \
+        "ActorStochasticMLP"
+    mlp = state["actor"]["mlp"]
+    obs_dim, act_dim = (int(np.shape(mlp[0]["w"])[1]),
+                        int(np.shape(mlp[-1]["w"])[0]))
+    out: Dict[str, Any] = {"actor": actor_from_jax(
+        state["actor"], obs_dim, act_dim, network, stochastic,
+        device="cpu").state_dict()}
+    for key in ("critic", "target_critic"):
+        if state.get(key) is not None:
+            out[key] = critic_from_jax(state[key], obs_dim, network,
+                                       device="cpu").state_dict()
+    for key in ("obs_rms", "ret_rms"):
+        out[key] = (running_mean_std_from_jax(state[key], device="cpu")
+                    .state_dict() if state.get(key) is not None else None)
+    for key in ("iter_count", "step_count"):
+        if key in state:
+            out[key] = int(state[key])
+    torch.save(out, path)
     return out

@@ -3,7 +3,12 @@ diffrl_tpu/utils/running_mean_std.py), as an nn.Module with buffers that
 ``update`` changes in place. The JAX package's RunningMeanStd is a value;
 where it keeps an old value while a new one is made (SHAC normalizes a
 whole window with the statistics frozen at its start), the port takes a
-``copy()``."""
+``copy()``.
+
+Under a data mesh (``parallel.mesh``) ``update(batch, mesh)`` takes each
+rank's shard of a global batch and gives every rank what JAX's ``update``
+gives over the global batch: the global count, mean and M2 (the ranks'
+moments gathered and merged), not an average of per-rank statistics."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..parallel.mesh import moments
 
 
 class RunningMeanStd(nn.Module):
@@ -28,11 +34,14 @@ class RunningMeanStd(nn.Module):
                                 device=device))
 
     @torch.no_grad()
-    def update(self, batch) -> "RunningMeanStd":
+    def update(self, batch, mesh=None) -> "RunningMeanStd":
+        """Takes in ``batch`` [..., *shape]; with a ``mesh`` (a
+        parallel.mesh.DataMesh) ``batch`` is this rank's shard of the
+        global batch, every rank holding as many rows."""
         batch = batch.reshape(-1, *self.mean.shape)
-        self.update_from_moments(batch.mean(dim=0),
-                                 batch.var(dim=0, unbiased=False),
-                                 batch.shape[0])
+        mean, var = moments(mesh, batch)
+        self.update_from_moments(
+            mean, var, batch.shape[0] * (1 if mesh is None else mesh.size))
         return self
 
     @torch.no_grad()

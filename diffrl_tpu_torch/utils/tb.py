@@ -3,7 +3,8 @@
 Tags follow the reference's ``name/iter``, ``name/step`` and ``name/time``
 triplet so that the multi-seed averaging tool (examples/
 combine_batch_logs.py) finds them. Without tensorboardX the writer is a
-no-op.
+no-op, and so is a writer
+given no directory.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from typing import Optional
 
 
 class TBWriter:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str]):
+        self._w = None
+        if log_dir is None:
+            return
         try:
             from tensorboardX import SummaryWriter
 

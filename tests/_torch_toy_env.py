@@ -36,6 +36,14 @@ class ToyEnv:
         self.A, self.B = self.asarray(A.T), self.asarray(B.T)
         self.x0 = self.asarray(X0[:num_envs])
 
+    def shard(self, rank, size):
+        """Rows [rank E/size, (rank + 1) E/size) of the batch: the port's
+        data mesh (its trainers call it under multi_gpu)."""
+        n = self.num_envs // size
+        self.x0 = self.x0[rank * n:(rank + 1) * n]
+        self.num_envs = n
+        return self
+
     def reset(self, key=None):
         return {"x": self.x0 + 0.0, "t": self.x0[:, 0] * 0}
 

@@ -211,8 +211,8 @@ def test_shac_options_raise(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SHAC(cfg)
     cfg["params"]["config"]["multi_gpu"] = True
-    with pytest.raises(NotImplementedError, match="multi_gpu"):
-        SHAC(cfg, device="cpu")
+    mesh = SHAC(cfg, device="cpu").mesh      # no process group: one rank
+    assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
     cfg = _cfg(tmp_path, sim_backward="remat")
     assert SHAC(cfg, device="cpu").env.sim_backward == "remat"
     cfg = _cfg(tmp_path, sim_backward="scan")
