@@ -1,0 +1,7 @@
+"""PPO's rollout (``PPO.play_steps``): host-clock milliseconds per epoch,
+the host waiting for the device before and after, over the traced run's
+unprofiled epochs."""
+
+
+def read(ctx):
+    return ctx.phase_ms.get("play_steps")
