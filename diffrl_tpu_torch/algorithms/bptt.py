@@ -38,6 +38,7 @@ from .. import default_device, optim
 from .. import envs as env_registry
 from ..models import ActorDeterministicMLP, ActorStochasticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
+from ..utils.time_report import epoch_span
 from .shac import _global_norm, clip_and_step, linear_schedule
 from .trainer import Trainer
 
@@ -220,6 +221,7 @@ class BPTT(Trainer):
         self.actor_updates += 1
         return gnorm
 
+    @epoch_span("bptt.epoch")
     def train_epoch(self, noise: Optional[torch.Tensor] = None):
         """One BPTT epoch; returns its statistics as device tensors."""
         if self.is_lbfgs:

@@ -59,6 +59,7 @@ from ..envs.base import clip
 from ..models import A2CNetwork, ActorCriticPPO
 from ..models.builders import mask_hidden
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
+from ..utils.time_report import epoch_span, traced
 from .shac import _global_norm
 from .trainer import Trainer
 
@@ -241,6 +242,7 @@ class PPO(Trainer):
             if self.val_rms is not None else v
 
     @torch.no_grad()
+    @traced("ppo.play_steps")
     def play_steps(self, noise: Optional[torch.Tensor] = None):
         """The rollout: ``steps_num`` env steps without gradients, the
         observations normalized by the statistics frozen at its start
@@ -328,6 +330,7 @@ class PPO(Trainer):
             c_loss = mesh_lib.masked_mean((value - ret) ** 2, own)
         return a_loss, c_loss
 
+    @traced("ppo.returns")
     def _returns(self, outs, last_value):
         """GAE's advantages [H, E] and the values and returns, normalized
         by the value statistics after they take in the returns."""
@@ -341,6 +344,7 @@ class PPO(Trainer):
             returns_n = self.val_rms.normalize(returns_n)
         return advs, values_n, returns_n
 
+    @traced("ppo.update")
     def update(self, outs, last_value,
                perms: Optional[Sequence[torch.Tensor]] = None):
         """GAE, the statistics and the minibatch steps from the rollout's
@@ -373,6 +377,7 @@ class PPO(Trainer):
                                                  own=own)))
         return torch.stack(stats, dim=1)
 
+    @traced("optim.step")
     def _minibatch_step(self, params, loss, a_l, c_l, entropy, kl):
         """One clipped Adam step at the carried learning rate, which the KL
         then adapts; returns (loss, actor loss, critic loss, kl), summed
@@ -521,6 +526,7 @@ class PPO(Trainer):
                     params, *self.builder_loss(batch, own)))
         return torch.stack(stats, dim=1)
 
+    @epoch_span("ppo.epoch")
     def train_epoch(self, noise: Optional[torch.Tensor] = None,
                     perms: Optional[Sequence[torch.Tensor]] = None):
         """One PPO epoch; returns its statistics as device tensors."""
@@ -549,6 +555,7 @@ class PPO(Trainer):
             self.save("best_policy", snapshot=self._best_snapshot)
         self.save("final_policy")
 
+    @epoch_span("ppo.stats")
     def _process_epoch_stats(self, stats):
         """Host-side half of one epoch: one transfer of the statistics,
         meters, best-policy snapshot, logging."""

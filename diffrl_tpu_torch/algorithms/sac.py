@@ -38,6 +38,7 @@ from .. import envs as env_registry
 from ..envs.base import clip
 from ..models import DoubleCriticMLP, SACActor
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
+from ..utils.time_report import epoch_span
 from . import replay
 from .trainer import Trainer
 
@@ -186,6 +187,7 @@ class SAC(Trainer):
         return (torch.stack([c_loss.detach(), a_loss.detach(),
                              torch.exp(self.log_alpha.detach())]), td_err)
 
+    @epoch_span("sac.epoch")
     def train_epoch(self, seed_phase: bool = False,
                     draws: Optional[Sequence[Dict[str, torch.Tensor]]] = None):
         """``steps_per_epoch`` env steps, each followed (outside the seed

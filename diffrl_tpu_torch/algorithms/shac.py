@@ -45,6 +45,7 @@ from .. import envs as env_registry
 from ..parallel import mesh as mesh_lib
 from ..models import ActorDeterministicMLP, ActorStochasticMLP, CriticMLP
 from ..utils import AverageMeter, RunningMeanStd, TimeReport, print_info
+from ..utils.time_report import epoch_span, span, traced
 from .trainer import Trainer
 
 
@@ -60,6 +61,7 @@ def _global_norm(grads):
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
+@traced("optim.step")
 def clip_and_step(optimizer, params: Sequence[torch.Tensor], lr: float,
                   grad_norm: float, truncate: bool = True, mesh=None):
     """Sum the gradients in ``params``' .grad over ``mesh`` (one flat
@@ -226,6 +228,7 @@ class SHAC(Trainer):
 
     # ------------------------------------------------------------ one epoch
 
+    @traced("shac.rollout")
     def rollout(self, deterministic: bool = False):
         """The actor's window from the current env state, with gradients
         through the simulator. Returns (loss, outs) with outs the per-step
@@ -335,10 +338,12 @@ class SHAC(Trainer):
         return clip_and_step(optimizer, params, lr, self.grad_norm,
                              self.truncate_grad, self.mesh)
 
+    @traced("shac.actor_step")
     def actor_step(self, loss):
         """Backward through the window, then one clipped Adam step."""
         self.actor_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("shac.backward"):
+            loss.backward()
         return self.apply_actor_grads()
 
     def apply_actor_grads(self):
@@ -353,6 +358,7 @@ class SHAC(Trainer):
         return norms
 
     @torch.no_grad()
+    @traced("shac.targets")
     def target_values(self, rew, done, next_value):
         """Critic targets from [H, E] records; done must hold 1 on the last
         step. TD(lambda) is the JAX trainer's backward recursion."""
@@ -373,6 +379,7 @@ class SHAC(Trainer):
             targets[i] = (1.0 - lam_c) * Ai + lam * Bi
         return torch.stack(targets)
 
+    @traced("shac.critic_update")
     def critic_update(self, obs_flat, target_flat,
                       perms: Optional[Sequence[torch.Tensor]] = None):
         """critic_iterations x num_batch minibatch MSE steps. Each
@@ -426,6 +433,7 @@ class SHAC(Trainer):
                         self.critic.parameters()):
             t.copy_(t * a + p * (1.0 - a))
 
+    @traced("shac.critic_step")
     def critic_step(self, outs):
         """The epoch's critic half from the window's records ``outs``:
         TD(lambda) targets with the last step settled, the minibatch
@@ -438,6 +446,7 @@ class SHAC(Trainer):
         self.polyak()
         return value_loss
 
+    @epoch_span("shac.epoch")
     def train_epoch(self):
         """One SHAC epoch; returns the epoch's statistics as device
         tensors."""
@@ -478,6 +487,7 @@ class SHAC(Trainer):
                           ("episode_length_his", self.episode_length_his)):
             np.save(os.path.join(self.log_dir, f"{name}.npy"), np.array(his))
 
+    @epoch_span("shac.stats")
     def _process_epoch_stats(self, stats):
         """Host-side half of one epoch: one transfer of the statistics,
         episode meters, best-policy snapshot, logging."""

@@ -12,6 +12,7 @@ import torch
 
 from ..parallel.mesh import process_rank
 from ..utils.tb import TBWriter
+from ..utils.time_report import traced
 
 
 class Trainer:
@@ -40,7 +41,12 @@ class Trainer:
         return self.run(cfg["params"]["config"].get("player", {}).get(
             "games_num", 1))
 
+    @traced("trainer.save")
     def save(self, filename=None, snapshot=None):
+        """Writes ``snapshot`` (``_snapshot()`` unless given) to
+        ``<log_dir>/<filename>.pt``, in a span of its own: ``torch.save``
+        reads each tensor back from the card, and whether an epoch writes
+        a best policy depends on the wall clock."""
         if not self.is_writer:
             return
         filename = filename or "best_policy"

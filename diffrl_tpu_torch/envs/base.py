@@ -25,6 +25,7 @@ from .. import config, default_device
 from ..sim.articulation import simulate
 from ..sim.articulation_lb import simulate_batched_lb
 from ..sim.model import Model, State
+from ..utils.time_report import traced
 
 
 # the reverse passes an env takes (DiffEnv's docstring)
@@ -232,6 +233,7 @@ class DiffEnv:
                                  device=self.device),
         )
 
+    @traced("env.step")
     def step(self, env_state: EnvState, actions
              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor,
                         Dict[str, Any]]:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..utils.time_report import traced
 
 _ACTIVATIONS = {
     "elu": nn.functional.elu,
@@ -85,6 +86,7 @@ class ActorStochasticMLP(nn.Module):
             (action_dim,), float(logstd_init), dtype=torch.float32,
             device=device))
 
+    @traced("nets.forward")
     def forward(self, obs, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None, eps=None):
         """mu, or when not deterministic, a reparameterized sample mu + eps
@@ -107,6 +109,7 @@ class ActorDeterministicMLP(nn.Module):
         self.mu_net = MLP([obs_dim] + units + [action_dim], activation,
                           device=device, generator=generator)
 
+    @traced("nets.forward")
     def forward(self, obs, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         return self.mu_net(obs)
@@ -120,6 +123,7 @@ class CriticMLP(nn.Module):
         self.critic_net = MLP([obs_dim] + units + [1], activation,
                               device=device, generator=generator)
 
+    @traced("nets.forward")
     def forward(self, obs):
         return self.critic_net(obs)
 
@@ -136,6 +140,7 @@ class DoubleCriticMLP(nn.Module):
         self.q1 = MLP(dims, activation, device=device, generator=generator)
         self.q2 = MLP(dims, activation, device=device, generator=generator)
 
+    @traced("nets.forward")
     def forward(self, obs, actions):
         x = torch.cat([obs, actions], dim=-1)
         return self.q1(x), self.q2(x)
@@ -167,6 +172,7 @@ class ActorCriticPPO(nn.Module):
             (action_dim,), float(sigma_init or 0.0), dtype=torch.float32,
             device=device))
 
+    @traced("nets.forward")
     def forward(self, obs):
         """(mu [.., A], sigma [.., A], value [..])."""
         h = _ACTIVATIONS[self.activation](self.trunk(obs))
@@ -203,6 +209,7 @@ class SACActor(nn.Module):
         lo, hi = (cfg_network or {}).get("log_std_bounds", [-5.0, 2.0])
         self.log_std_min, self.log_std_max = float(lo), float(hi)
 
+    @traced("nets.forward")
     def dist(self, obs):
         mu, log_std = torch.chunk(self.net(obs), 2, dim=-1)
         t = torch.tanh(log_std)

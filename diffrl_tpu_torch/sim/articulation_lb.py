@@ -40,6 +40,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..utils.time_report import span, traced
 from .model import (
     JOINT_BALL,
     JOINT_FIXED,
@@ -1102,12 +1103,14 @@ def _simulate_forward(model, h, nblocks, mm, q, qd, ja, ma, save):
     with torch.no_grad():
         for _ in range(nblocks):
             q0, qd0 = q, qd
-            q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
+            with span("sim.refresh"):
+                q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
             states = []
-            for _ in range(mm - 1):
-                if save:
-                    states.append((q, qd))
-                q, qd = substep_forward(model, q, qd, ja, ma, h, H, Hinv)
+            with span("sim.cached"):
+                for _ in range(mm - 1):
+                    if save:
+                        states.append((q, qd))
+                    q, qd = substep_forward(model, q, qd, ja, ma, h, H, Hinv)
             if save:
                 blocks.append((q0, qd0, states, H, Hinv))
     return q, qd, blocks
@@ -1137,6 +1140,7 @@ class _SimulateReplay(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("sim.replay")
     def backward(ctx, gq, gqd):
         from .substep_kernels import substep_vjp
 
@@ -1150,15 +1154,16 @@ class _SimulateReplay(torch.autograd.Function):
             q0, qd0, H, Hinv, *states = flat[b * per_block:
                                              (b + 1) * per_block]
             gH = torch.zeros_like(H)
-            for i in reversed(range(mm - 1)):
-                gq, gqd, dja, dma, dH = substep_vjp(
-                    model, states[2 * i], states[2 * i + 1], ja, ma, h, H,
-                    Hinv, gq, gqd)
-                gja += dja
-                gH += dH
-                if gma is not None:
-                    gma += dma
-            with torch.enable_grad():
+            with span("sim.vjp"):
+                for i in reversed(range(mm - 1)):
+                    gq, gqd, dja, dma, dH = substep_vjp(
+                        model, states[2 * i], states[2 * i + 1], ja, ma, h,
+                        H, Hinv, gq, gqd)
+                    gja += dja
+                    gH += dH
+                    if gma is not None:
+                        gma += dma
+            with span("sim.replay_refresh"), torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in (q0, qd0, ja)]
                 if ma is not None:
                     leaves.append(ma.detach().requires_grad_())
@@ -1192,6 +1197,7 @@ class _CachedSubstep(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("sim.vjp")
     def backward(ctx, gq, gqd):
         from .substep_kernels import substep_vjp
 
@@ -1207,13 +1213,17 @@ def _simulate_residual(model, h, nblocks, mm, q, qd, ja, ma):
     the refresh differentiated through its plain code (autograd keeps its
     intermediates), each cached substep a _CachedSubstep."""
     for _ in range(nblocks):
-        q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
+        with span("sim.refresh"):
+            q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
         q, qd = q.contiguous(), qd.contiguous()
-        for _ in range(mm - 1):
-            q, qd = _CachedSubstep.apply(model, h, q, qd, ja, ma, H, Hinv)
+        with span("sim.cached"):
+            for _ in range(mm - 1):
+                q, qd = _CachedSubstep.apply(model, h, q, qd, ja, ma, H,
+                                             Hinv)
     return q, qd
 
 
+@traced("sim.simulate")
 def simulate_batched_lb(
     model: Model,
     joint_q,

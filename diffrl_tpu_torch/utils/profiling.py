@@ -2,8 +2,10 @@
 
 ``trace()`` records a ``torch.profiler`` trace (CPU and, on a CUDA device,
 CUDA activity through CUPTI) around a block of work and writes it as a
-Chrome trace; ``summarize_trace()`` aggregates duration and count per op
-name from the written trace, as the JAX package's does from its XLA trace.
+Chrome trace, with the program's spans (``utils/time_report.py``) as one
+more track, "diffrl_tpu_torch spans"; ``summarize_trace()`` aggregates
+duration and count per op name from the written trace, as the JAX
+package's does from its XLA trace.
 """
 
 from __future__ import annotations
@@ -13,15 +15,23 @@ import contextlib
 import glob
 import json
 import os
+import re
+import shutil
 import time
 from typing import Optional, Sequence
 
 import torch
 
 from .. import default_device
+from . import time_report
 
 #: Chrome-trace categories of work on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the process name of the track that holds the program's spans
+SPAN_TRACK = "diffrl_tpu_torch spans"
+#: how much of a trace's head and tail is read for its layout
+_PEEK = 1 << 20
+_BASE = re.compile(r'"baseTimeNanoseconds"\s*:\s*(\d+)')
 
 
 def _device_events(events):
@@ -34,24 +44,72 @@ def trace(log_dir: str = "logs/trace", device=None):
     ``<log_dir>/<time>.trace.json``. ``device`` (CUDA unless named) sets the
     activities: CPU and CUDA on a CUDA device, CPU alone for
     ``device="cpu"``. On CUDA the block's work is synchronized before the
-    trace ends, and a trace without device events raises."""
+    trace ends, and a trace without device events raises. The spans that
+    the program recorded meanwhile are added as the track ``SPAN_TRACK``,
+    one row per thread, each with its counts in ``args``."""
     dev = default_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"{time.time_ns()}.trace.json")
+    t0 = time.time_ns()
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(path)
+    _add_spans(path, [s for s in time_report.spans() if s.start_ns >= t0])
     if dev.type == "cuda":
         with open(path) as f:    # a substring test: the trace may be large
             text = f.read()
         if not any(f'"cat": "{c}"' in text for c in DEVICE_CATEGORIES):
             raise RuntimeError(f"{path}: the profiler recorded no device "
                                "event (CUPTI tracing unavailable?)")
+
+
+def _add_spans(path, spans):
+    """Write ``spans`` into the Chrome trace at ``path`` as complete events
+    at the head of its ``traceEvents``, on the trace's own time base; the
+    rest of the file is copied as it is."""
+    if not spans:
+        return
+    with open(path) as f:
+        head = f.read(_PEEK)
+    found = re.search(r'"traceEvents"\s*:\s*\[', head)
+    if found is None:
+        raise RuntimeError(f"{path}: no traceEvents to add the spans to")
+    base = _base_ns(path, head)
+    events = [{"ph": "M", "name": "process_name", "pid": SPAN_TRACK,
+               "tid": 0, "args": {"name": SPAN_TRACK}}]
+    events += [{"ph": "X", "cat": "span", "name": s.name, "pid": SPAN_TRACK,
+                "tid": s.thread, "ts": (s.start_ns - base) / 1e3,
+                "dur": (s.end_ns - s.start_ns) / 1e3,
+                "args": dict(s.counts, id=s.id, parent=s.parent,
+                             epoch=s.epoch)} for s in spans]
+    text = ",\n".join(json.dumps(e) for e in events)
+    rest = head[found.end():].lstrip()
+    if not rest.startswith("]"):
+        text += ","
+    tmp = path + ".tmp"
+    with open(path) as src, open(tmp, "w") as out:
+        out.write(src.read(found.end()))
+        out.write("\n" + text + "\n")
+        shutil.copyfileobj(src, out)
+    os.replace(tmp, path)
+
+
+def _base_ns(path, head) -> int:
+    """The trace's ``baseTimeNanoseconds``, which Kineto writes before
+    ``traceEvents`` or in the trailer after them (the events' ``ts`` are
+    microseconds after it); 0 where the trace names none (its ``ts`` are
+    then Unix microseconds)."""
+    base = _BASE.search(head)
+    if base is None:
+        with open(path, "rb") as f:
+            f.seek(max(0, os.path.getsize(path) - _PEEK))
+            base = _BASE.search(f.read().decode("utf-8", "replace"))
+    return int(base.group(1)) if base else 0
 
 
 def load_trace(log_dir: str):
