@@ -8,9 +8,10 @@ raises and the script exits non-zero:
 
 1. device  -- needs CUDA; prints the card's name and power limit
               (nvidia-smi).
-2. build   -- builds the cached-substep forward kernel (K1) and its adjoint
-              kernel (K2) for Ant, Humanoid, Hopper, Cheetah, CartPole and
-              SNU Humanoid, and K1 for a prismatic + revolute model, from
+2. build   -- builds the cached-substep forward kernel (K1), its adjoint
+              kernel (K2) and the mass matrix's adjoint kernel (K3) for
+              Ant, Humanoid, Hopper, Cheetah, CartPole and SNU Humanoid,
+              and K1 for a prismatic + revolute model, from
               csrc/ with nvcc for sm_90a,
               one nvcc process per library, all started together: seconds,
               registers per thread, spill and stack bytes; threads per env,
@@ -23,7 +24,10 @@ raises and the script exits non-zero:
               against its plain version substep_lb and float64 (q rtol 2e-5
               atol 2e-6, qd rtol 2e-5 atol 2e-5) and K2 against
               substep_vjp_lb and float64 (rtol 2e-4, atol 1e-5), the
-              muscle activations' cotangent dma included; how many envs
+              muscle activations' cotangent dma included; K3 (the refresh
+              substep's mass matrix H(q), dq + (dH/dq)^T gH under a random
+              gH) against mass_matrix_vjp_lb and float64 (rtol 2e-4, atol
+              1e-5); how many envs
               have a select within testing.SELECT_ULPS float32 units of
               its boundary, and the plain path's float32 rounding of the
               select arguments in those units (what SELECT_ULPS is set
@@ -35,7 +39,9 @@ raises and the script exits non-zero:
               plain path and float64 (rtol/atol 1e-4), and its gradient of
               a fixed weighted sum of (q', qd') w.r.t. (q, qd, joint_act,
               muscle activations), kernel path against plain path and
-              float64 (rtol 1e-3, atol 1e-4).
+              float64 (rtol 1e-3, atol 1e-4), K2 launched on every substep
+              (the refresh's VJP is one K2 at its input) and K3 once per
+              refresh.
               The rules are diffrl_tpu_torch/testing.py's: entry by entry
               no further from float64 than twice the float32 plain
               version's error plus rtol and a floor (8, Humanoid 90, SNU
@@ -93,14 +99,15 @@ raises and the script exits non-zero:
               against the E = 1 run, and its gradient finite.
    backward-- Ant at E = 4096 from the settled state: one env step's
               gradient on each reverse pass of BACKWARDS, "lb" (K1, K2,
-              replay), "lb_ad" (autograd through K1/K2 nodes and the
-              refresh, no replay), "pallas" (the JAX package's name for
-              the kernel path: the replay with K1 and K2), "manual" (the
+              K3), "lb_ad" (autograd through K1/K2 nodes and the
+              refresh), "pallas" (the JAX package's name for
+              the kernel path: "lb"'s), "manual" (the
               hand-written pass over the plain substeps) and "remat"
               (simulate), each against "remat" and float64 by
               testing.py's rules; per pass the largest per-env error
-              against float64, K1's and K2's launches per step (15 and
-              15 on the kernel paths, 0 on the others), and the
+              against float64, K1's, K2's and K3's launches per step (15,
+              16 and 1 on "lb" and "pallas", 15, 15 and 0 on "lb_ad", 0
+              on the others), and the
               simulator's forward + backward of one step: device time (one
               CUDA graph), time per call, peak memory ("pallas" runs the
               simulator of "lb", whose times it reports).
@@ -115,26 +122,29 @@ raises and the script exits non-zero:
               each through the trainer's train() from
               examples/cfg/<algo>/<cfg>: SHAC from
               shac/{ant,humanoid,hopper,cheetah,cartpole_swing_up,
-              snu_humanoid}.yaml at 4096 envs x 32 steps (1 epoch each; K1
-              and K2 launch 32 x (substeps / mm) x (mm - 1) times each per
-              epoch: Humanoid 1,504, CartPole 96, SNU Humanoid 1,344); BPTT
+              snu_humanoid}.yaml at 4096 envs x 32 steps (1 epoch each; per
+              epoch K1 launches 32 x (substeps / mm) x (mm - 1) times, K2
+              32 x substeps and K3 32 x substeps / mm: Ant 480, 512 and
+              32, Humanoid 1,504, 1,536 and 32, CartPole 96, 128 and 32,
+              SNU Humanoid 1,344, 1,536 and 192); BPTT
               from bptt/ant.yaml (32 envs, steps_num cut from 1,000 to 50:
-              K1 and K2 750 each) and cartpole_swing_up.yaml (64 envs,
-              steps_num cut from 240 to 120: 360 each); PPO from
+              K1 750, K2 800, K3 50) and cartpole_swing_up.yaml (64 envs,
+              steps_num cut from 240 to 120: 360, 480 and 120); PPO from
               ppo/ant.yaml (2048 x 32, minibatches of 16,384, 5
-              mini-epochs: K1 480, K2 0); SAC from sac/ant.yaml (128 x 128,
-              batch 4,096, ring of 999,936; num_seed_steps cut from 5 to
-              1, then one learning epoch: K1 1,920 and K2 0 per epoch);
-              SHAC Ant with diff_env.sim_backward lb_ad (4096 x 32, 1
-              epoch: K1 480, K2 480); BPTT CartPole with algo lbfgs
-              (optax's L-BFGS and zoom line search, 64 envs, steps_num
-              cut from 240 to 32, 2 epochs: K1 and K2 (1 + probes) x 96
-              per epoch, the probes printed); PPO Ant with an LSTM of 256
-              units after its MLP (the builder path, 2048 x 32, seq_length
-              4: K1 480, K2 0).
+              mini-epochs: K1 480, K2 and K3 0); SAC from sac/ant.yaml (128
+              x 128, batch 4,096, ring of 999,936; num_seed_steps cut from
+              5 to 1, then one learning epoch: K1 1,920, K2 and K3 0 per
+              epoch); SHAC Ant with diff_env.sim_backward lb_ad (4096 x
+              32, 1 epoch: K1 480, K2 480, K3 0: the refresh through
+              autograd); BPTT CartPole with algo lbfgs (optax's L-BFGS and
+              zoom line search, 64 envs, steps_num cut from 240 to 32, 2
+              epochs: (1 + probes) x (96, 128, 32) per epoch, the probes
+              printed); PPO Ant with an LSTM of 256 units after its MLP
+              (the builder path, 2048 x 32, seq_length 4: K1 480, K2 and
+              K3 0).
               Per epoch: seconds, env-steps/s, peak memory, host syncs
               and launches; finite statistics, a changed policy. After
-              each path's epochs, one launch of K1 and of K2 at the
+              each path's epochs, one launch of K1, K2 and K3 at the
               path's own E on the trainer's last env state, held against
               the plain versions and float64 as in phases 3-4. One more
               epoch of SHAC Ant, Humanoid and SNU Humanoid, BPTT Ant and
@@ -155,8 +165,9 @@ raises and the script exits non-zero:
               parameters bit for bit equal, the first epoch's actor loss
               (PPO: loss and critic loss) and the policy's parameters
               after it (2-norm) at MULTI's bounds against the
-              train phase's one-process first epoch; K1 and K2 launches
-              per rank (SHAC 480 and 480, PPO 480 and 0) and seconds per
+              train phase's one-process first epoch; K1, K2 and K3
+              launches per rank (SHAC 480, 512 and 32, PPO 480, 0 and 0)
+              and seconds per
               epoch; every rank's exit code checked. Then SHAC Ant with
               multi_gpu at world size 1 on NCCL in this process, two
               epochs: the first against the one-process run as above, no
@@ -169,15 +180,17 @@ raises and the script exits non-zero:
               ms per request; a bad path and body refused.
    profile -- one SHAC Ant epoch under utils.profiling.trace() (CPU and
               CUDA activity): the top 15 device ops by time
-              (summarize_trace), K1's and K2's kernels found by name, and
+              (summarize_trace), K1's, K2's and K3's kernels found by name
+              with their launches, and
               the device-busy share of the traced window.
    render  -- after the main phase, its policy for 64 steps from a reset,
               env 0 into a .usda stage (render.UsdRenderer) and an HTML
               viewer (viewer.HtmlViewer); 64 frames in each.
-8. timing  -- per model, device time per launch of both kernels (CUDA
-              events with the host queued ahead), per-call times, the plain
-              versions as CUDA graphs; for Ant, Humanoid and SNU Humanoid
-              the refresh substep and its replay; bench.py-style
+8. timing  -- per model, device time per launch of the three kernels
+              (CUDA events with the host queued ahead), per-call times, the
+              plain versions as CUDA graphs; for Ant, Humanoid and SNU
+              Humanoid the refresh substep and its VJP (K2 and K3 at the
+              refresh's input, as the reverse pass takes it); bench.py-style
               random-action env-steps/s on Ant.
 
 Before the last line it prints the nvidia-smi line and one JSON line with
@@ -301,57 +314,60 @@ CLOTH_MARGIN = 0.05
 GRAD_REL = 5e-3
 # the training paths, from examples/cfg/<algo>/<cfg> through the trainer's
 # train(): the model they run, the config's entries set here, epochs (SAC:
-# its seed epoch, then a learning epoch) and K1 and K2 launches per epoch
-# (steps x substeps / mm x (mm - 1)). SHAC runs every model at E envs x
-# TRAIN_STEPS; the others run at the config's widths (num_actors,
-# networks, substeps, mm, batch sizes), with the cuts made. The epochs of
-# the paths marked "split" are followed by one more, split into phases.
+# its seed epoch, then a learning epoch) and K1, K2 and K3 launches per
+# epoch (steps x substeps / mm x (mm - 1), steps x substeps: the refresh's
+# VJP is one K2 at its input, and steps x substeps / mm). SHAC runs every
+# model at E envs x TRAIN_STEPS; the others run at the config's widths
+# (num_actors, networks, substeps, mm, batch sizes), with the cuts made.
+# The epochs of the paths marked "split" are followed by one more, split
+# into phases.
 TRAINERS = {
     **{f"SHAC {name}": dict(
         algo="shac", model=name, cfg=spec["cfg"],
         config=dict(num_actors=E, steps_num=TRAIN_STEPS),
         epochs=spec["epochs"], split=name in SPLIT,
         launches=(TRAIN_STEPS * spec["substeps"] // spec["mm"]
-                  * (spec["mm"] - 1),) * 2)
+                  * (spec["mm"] - 1), TRAIN_STEPS * spec["substeps"],
+                  TRAIN_STEPS * spec["substeps"] // spec["mm"]))
        for name, spec in MODELS.items()},
     "BPTT Ant": dict(algo="bptt", model="Ant", cfg="ant.yaml",
                      config=dict(steps_num=50), epochs=1, split=True,
-                     launches=(750, 750)),
+                     launches=(750, 800, 50)),
     "BPTT CartPole": dict(algo="bptt", model="CartPoleSwingUp",
                           cfg="cartpole_swing_up.yaml",
                           config=dict(steps_num=120), epochs=1,
-                          split=False, launches=(360, 360)),
+                          split=False, launches=(360, 480, 120)),
     "PPO Ant": dict(algo="ppo", model="Ant", cfg="ant.yaml", config={},
-                    epochs=1, split=True, launches=(480, 0)),
+                    epochs=1, split=True, launches=(480, 0, 0)),
     "SAC Ant": dict(algo="sac", model="Ant", cfg="ant.yaml",
                     config=dict(num_seed_steps=1), epochs=2, split=False,
-                    launches=(1920, 0)),
+                    launches=(1920, 0, 0)),
     # SHAC on the residual reverse pass: each cached substep an autograd
-    # node of K1 and K2, no replay
+    # node of K1 and K2, the refresh through autograd
     "SHAC Ant lb_ad": dict(algo="shac", model="Ant", cfg="ant.yaml",
                            config=dict(num_actors=E, steps_num=TRAIN_STEPS),
                            diff_env=dict(sim_backward="lb_ad"), epochs=1,
-                           split=False, launches=(480, 480)),
+                           split=False, launches=(480, 480, 0)),
     # optax's L-BFGS: every line-search probe re-runs the window forward
-    # and backward, so K1 and K2 launch (1 + probes) x steps x (mm - 1)
-    # times per epoch; steps_num cut from 240 to 32 to keep the row near a
+    # and backward, so K1, K2 and K3 launch (1 + probes) times the window's
+    # counts per epoch; steps_num cut from 240 to 32 to keep the row near a
     # minute (a 240-step window took 26.8 s forward and backward on the
     # card, and a search may take 8 probes)
     "BPTT CartPole L-BFGS": dict(algo="bptt", model="CartPoleSwingUp",
                                  cfg="cartpole_swing_up.yaml",
                                  config=dict(steps_num=32),
                                  algo_name="lbfgs", epochs=2, split=False,
-                                 launches=(96, 96), per_probe=True),
+                                 launches=(96, 128, 32), per_probe=True),
     # the builder path: an LSTM of 256 units after ppo/ant.yaml's MLP,
     # minibatches of 4-step chunks
     "PPO Ant LSTM": dict(algo="ppo", model="Ant", cfg="ant.yaml",
                          config=dict(seq_length=4),
                          network=dict(rnn=dict(name="lstm", units=256,
                                                layers=1)),
-                         epochs=1, split=False, launches=(480, 0)),
+                         epochs=1, split=False, launches=(480, 0, 0)),
 }
-# the env's reverse passes (envs/base.DiffEnv): the replay pass through K1
-# and K2 ("lb", and "pallas", the name of the JAX package's Pallas path,
+# the env's reverse passes (envs/base.DiffEnv): the replay pass through K1,
+# K2 and K3 ("lb", and "pallas", the name of the JAX package's Pallas path,
 # which takes it too), autograd through K1/K2 nodes and the refresh
 # ("lb_ad"), the hand-written pass over the plain substeps ("manual") and
 # checkpointed plain substeps ("remat")
@@ -361,7 +377,31 @@ BACKWARDS = ("lb", "lb_ad", "pallas", "manual", "remat")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("substep_forward", "substep_vjp")
+KERNELS = ("substep_forward", "substep_vjp", "mass_matrix_vjp")
+# the line of the JAX package that each kernel replaces: the two Pallas
+# kernels, and the replayed refresh substep's jax.vjp of the reverse pass
+REPLACES = {"substep_forward": "diffrl_tpu/sim/pallas_substep.py:243",
+            "substep_vjp": "diffrl_tpu/sim/pallas_substep.py:298",
+            "mass_matrix_vjp": "diffrl_tpu/sim/articulation_lb.py:1073"}
+
+
+def launch_counts():
+    """(K1, K2, K3) launches so far, the kernel wrappers' counters."""
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    return (sk.substep_forward.launches, sk.substep_vjp.launches,
+            sk.mass_matrix_vjp.launches)
+
+
+def launches_since(n0):
+    return tuple(n - m for n, m in zip(launch_counts(), n0))
+
+
+def reset_launches():
+    from diffrl_tpu_torch.sim import substep_kernels as sk
+
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    sk.mass_matrix_vjp.launches = 0
 
 
 def phase(name, msg):
@@ -500,7 +540,7 @@ def controls(env, acts):
 def step_grad(model, q, qd, ja, ma, w_q, w_qd, mm, substeps, plain):
     """d/d(q, qd, joint_act[, muscle activations]) of <w_q, q'> +
     <w_qd, qd'> over one env step (env-leading [E, .] inputs), through
-    simulate_batched_lb (K1 forward, K2 reverse) or, with ``plain``,
+    simulate_batched_lb (K1 forward, K2 and K3 reverse) or, with ``plain``,
     autograd through refresh_substep_lb and substep_lb alone."""
     from diffrl_tpu_torch.sim.articulation_lb import simulate_batched_lb
     leaves = [x.detach().clone().requires_grad_()
@@ -568,11 +608,13 @@ def hold(name, what, got, plain, exact, rtol, atol, whole_step=False,
 
 
 def hold_kernels(name, env, s, gen, what):
-    """One launch each of K1 and K2 at ``env``'s own E, held against their
-    plain versions and float64 by ``hold`` (the select margins and a
-    witness passed): the plain refresh substep at the env state ``s`` under
-    random actions from ``gen``, then one cached substep and its VJP under
-    random cotangents from ``gen``. Also measures how near the selects lie
+    """One launch each of K1, K2 and K3 at ``env``'s own E, held against
+    their plain versions and float64 by ``hold`` (K1 and K2 with the select
+    margins and a witness): the plain refresh substep at the env state
+    ``s`` under random actions from ``gen``, then one cached substep and
+    its VJP under random cotangents from ``gen``, and the mass matrix's VJP
+    at ``s`` under a random cotangent of H and a random dq to add to it.
+    Also measures how near the selects lie
     to their boundaries: the envs with a select within SELECT_ULPS units,
     and the plain path's float32 rounding of the select arguments
     (articulation_lb.select_rounding, what SELECT_ULPS is set from).
@@ -599,17 +641,22 @@ def hold_kernels(name, env, s, gen, what):
     gqd = torch.randn(qd1.shape, generator=gen, device=env.device)
     fargs = (model, q1, qd1, jat, mat, h, H, Hinv)
     vargs = fargs + (gq, gqd)
+    margs = (model, q, torch.randn(H.shape, generator=gen, device=env.device),
+             torch.randn(q.shape, generator=gen, device=env.device))
     with torch.no_grad():
-        n0 = (sk.substep_forward.launches, sk.substep_vjp.launches)
+        n0 = launch_counts()
         kf = sk.substep_forward(*fargs)
         kv = sk.substep_vjp(*vargs)
-        if (sk.substep_forward.launches, sk.substep_vjp.launches) != (
-                n0[0] + 1, n0[1] + 1):
+        km = sk.mass_matrix_vjp(*margs)
+        if launches_since(n0) != (1, 1, 1):
             raise RuntimeError(f"{name} {what}: the kernels did not launch")
         pf, pv = lb.substep_lb(*fargs), lb.substep_vjp_lb(*vargs)
+        pm = margs[3] + lb.mass_matrix_vjp_lb(*margs[:3])
         xf = lb.substep_lb(model, *f64(q1, qd1, jat, mat), h, *f64(H, Hinv))
         xv = lb.substep_vjp_lb(model, *f64(q1, qd1, jat, mat), h,
                                *f64(H, Hinv, gq, gqd))
+        xm = margs[3].double() + lb.mass_matrix_vjp_lb(
+            model, *f64(q, margs[2]))
     torch.cuda.synchronize()
     margins = lb.select_margins(model, q1, qd1)
     rounding = lb.select_rounding(model, q1, qd1)
@@ -627,18 +674,23 @@ def hold_kernels(name, env, s, gen, what):
                 witness=witness(name, "substep_vjp", i, vargs))
            for i, (lab, kx, px, xx) in enumerate(zip(labs, kv, pv, xv))
            if kx is not None]
-    out = dict(fargs=fargs, vargs=vargs, acts=acts, ja=ja, ma=ma,
-               n_active=sk.active_contacts(model, q1), near=near,
+    mass = hold(name, "mass_matrix_vjp dq", km, pm, xm, 2e-4, 1e-5)
+    out = dict(fargs=fargs, vargs=vargs, margs=margs, acts=acts, ja=ja,
+               ma=ma, n_active=sk.active_contacts(model, q1), near=near,
                n_near=int((least <= ulps).sum()), rounding=rounding,
-               err_fwd=max(e for e, _ in fwd), err_vjp=max(e for e, _ in vjp))
+               err_fwd=max(e for e, _ in fwd), err_vjp=max(e for e, _ in vjp),
+               err_mass=mass[0])
     phase("kernel", f"{name} {what} E={n}, {out['n_active']} contacts "
           f"active: one cached substep, K1 vs plain max err "
           f"{out['err_fwd']:.3e} (rtol 2e-5, atol 2e-6/2e-5) and K2 vs plain "
-          f"max err {out['err_vjp']:.3e} (rtol 2e-4, atol 1e-5); per output: "
+          f"max err {out['err_vjp']:.3e} (rtol 2e-4, atol 1e-5), the mass "
+          f"matrix's VJP at the refresh's input, K3 vs plain max err "
+          f"{out['err_mass']:.3e} (rtol 2e-4, atol 1e-5); per output: "
           f"entries off the plain version by check_vjp's bound, vs float64 "
           f"entries outside rtol/atol kernel/plain, max err kernel/plain, "
           f"least floor of the 2x-plain rule, envs at a select's boundary: "
-          + "; ".join(t for _, t in fwd + vjp) + f" | envs with a select "
+          + "; ".join(t for _, t in fwd + vjp + [mass])
+          + f" | envs with a select "
           f"within SELECT_ULPS = {ulps:g} units: {out['n_near']} of "
           f"{n} (" + ", ".join(f"{k} {v}" for k, v in near.items())
           + "); the plain path's float32 rounding of the select arguments, "
@@ -654,7 +706,6 @@ def check_model(name, env, gen):
     kernel path against plain path. Returns what the timing phase reuses
     and the largest errors."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
-    from diffrl_tpu_torch.sim import substep_kernels as sk
 
     model, mm = env.model, MODELS[name]["mm"]
     substeps = env.sim_substeps
@@ -686,13 +737,13 @@ def check_model(name, env, gen):
     w_q = torch.randn(s1.joint_q.shape, generator=gen, device=env.device)
     w_qd = torch.randn(s1.joint_qd.shape, generator=gen, device=env.device)
     gargs = (s1.joint_q, s1.joint_qd, ja, ma, w_q, w_qd, mm, substeps)
-    n0 = sk.substep_vjp.launches
+    n0 = launch_counts()
     kg = step_grad(model, *gargs, plain=False)
-    want = (substeps // mm) * (mm - 1)
-    if sk.substep_vjp.launches - n0 != want:
-        raise RuntimeError(f"{name}: the env step's reverse pass launched "
-                           f"substep_vjp {sk.substep_vjp.launches - n0} "
-                           f"times, expected {want}")
+    want = ((substeps // mm) * (mm - 1), substeps, substeps // mm)
+    if launches_since(n0) != want:
+        raise RuntimeError(f"{name}: the env step launched (substep_forward, "
+                           f"substep_vjp, mass_matrix_vjp) "
+                           f"{launches_since(n0)} times, expected {want}")
     pg = step_grad(model, *gargs, plain=True)
     xg = step_grad(model, *f64(*gargs[:6]), mm, substeps, plain=True)
     torch.cuda.synchronize()
@@ -1019,7 +1070,6 @@ def train(label, dev, card, gen):
     [per epoch: dict of seconds, peak GB, host syncs, launches, the policy's
     parameters after it and its statistics]) and checks the launch counts,
     finite statistics and a changed policy."""
-    from diffrl_tpu_torch.sim import substep_kernels as sk
 
     spec = TRAINERS[label]
     cfg, changed = trainer_cfg(label)
@@ -1032,31 +1082,31 @@ def train(label, dev, card, gen):
     def recorded(*args, **kwargs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n = (sk.substep_forward.launches, sk.substep_vjp.launches)
+        n = launch_counts()
         t = time.perf_counter()
         out, syncs = host_syncs(lambda: train_epoch(*args, **kwargs))
         torch.cuda.synchronize()
         records.append(dict(
             s=time.perf_counter() - t,
             gb=torch.cuda.max_memory_allocated() / 1e9, syncs=syncs,
-            launches=(sk.substep_forward.launches - n[0],
-                      sk.substep_vjp.launches - n[1]),
+            launches=launches_since(n),
             params=flat_params(trainer).clone(),
             probes=getattr(getattr(trainer, "actor_opt", None),
                            "linesearch_steps", None)))
         return out
 
     trainer.train_epoch = recorded
-    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    reset_launches()
     trainer.train()
-    launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
+    launches = launch_counts()
     trainer.train_epoch = train_epoch
     shutil.rmtree(logdir)
     expected = [tuple((1 + r["probes"] if spec.get("per_probe") else 1) * n
                       for n in spec["launches"]) for r in records]
     if [r["launches"] for r in records] != expected or launches != tuple(
             map(sum, zip(*expected))):
-        raise RuntimeError(f"{label} launched (substep_forward, substep_vjp) "
+        raise RuntimeError(f"{label} launched (substep_forward, substep_vjp, "
+                           f"mass_matrix_vjp) "
                            f"{[r['launches'] for r in records]} per epoch, "
                            f"expected {expected}")
     stats = {k: [v for _, _, v in trainer.scalars[k]]
@@ -1137,19 +1187,21 @@ def split(label, trainer):
 
 
 def time_kernels(name, chk, card):
-    """Device and per-call times of K1 and K2 and of their plain versions
-    at the check's shapes, and each kernel's bound. Returns {kernel: dict}
-    of the JSON line's numbers."""
+    """Device and per-call times of K1, K2 and K3 and of their plain
+    versions at the check's shapes, and each kernel's bound. Returns
+    {kernel: dict} of the JSON line's numbers."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
     from diffrl_tpu_torch.sim import substep_kernels as sk
 
-    fargs, vargs = chk["fargs"], chk["vargs"]
+    fargs, vargs, margs = chk["fargs"], chk["vargs"], chk["margs"]
     model = fargs[0]
     calls = {
         "substep_forward": (lambda: sk.substep_forward(*fargs),
                             lambda: lb.substep_lb(*fargs)),
         "substep_vjp": (lambda: sk.substep_vjp(*vargs),
                         lambda: lb.substep_vjp_lb(*vargs)),
+        "mass_matrix_vjp": (lambda: sk.mass_matrix_vjp(*margs),
+                            lambda: lb.mass_matrix_vjp_lb(*margs[:3])),
     }
     out = {}
     with torch.no_grad():
@@ -1163,9 +1215,12 @@ def time_kernels(name, chk, card):
             if kname == "substep_forward":
                 nbytes = sk.substep_forward_bytes(model, E)
                 flops = sk.substep_forward_flops(model, E)
-            else:
+            elif kname == "substep_vjp":
                 nbytes = sk.substep_vjp_bytes(model, E)
                 flops = sk.substep_vjp_flops(model, E, chk["n_active"])
+            else:
+                nbytes = sk.mass_matrix_vjp_bytes(model, E)
+                flops = sk.mass_matrix_vjp_flops(model, E)
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_F32_FLOPS * 1e3
             out[kname] = dict(ms=dev_ms, plain_ms=plain_ms,
@@ -1185,11 +1240,13 @@ def time_kernels(name, chk, card):
 
 def time_refresh(name, chk, card):
     """Device and per-call times of the plain refresh substep and of one
-    block's refresh replay (forward + autograd) of the reverse pass.
-    Returns (refresh per call, replay per call) in ms."""
+    block's refresh VJP as the reverse pass takes it: K2 at the refresh's
+    input, its dH added to H's cotangent, K3. Returns (refresh per call,
+    refresh VJP per call) in ms."""
     from diffrl_tpu_torch.sim import articulation_lb as lb
+    from diffrl_tpu_torch.sim import substep_kernels as sk
 
-    model, _, _, jat, mat, h, H, _ = chk["fargs"]
+    model, _, _, jat, mat, h, H, Hinv = chk["fargs"]
     s1 = chk["step_state"][0]
     q, qd = s1.joint_q.T.contiguous(), s1.joint_qd.T.contiguous()
     gq, gqd = chk["vargs"][8], chk["vargs"][9]
@@ -1198,24 +1255,20 @@ def time_refresh(name, chk, card):
     def refresh():
         lb.refresh_substep_lb(model, q, qd, jat, mat, h)
 
-    def replay():
-        leaves = [t.detach().requires_grad_() for t in (q, qd, jat, mat)
-                  if t is not None]
-        with torch.enable_grad():
-            r1, rd1, rH, _ = lb.refresh_substep_lb(
-                model, *leaves[:3], leaves[3] if mat is not None else None,
-                h)
-            torch.autograd.grad((r1, rd1, rH), leaves, (gq, gqd, gH))
+    def refresh_vjp():
+        dq, _, _, _, dH = sk.substep_vjp(model, q, qd, jat, mat, h, H, Hinv,
+                                         gq, gqd)
+        sk.mass_matrix_vjp(model, q, gH + dH, dq)
 
     with torch.no_grad():
-        r_dev, rp_dev = graph_ms(refresh), graph_ms(replay)
+        r_dev, rv_dev = graph_ms(refresh), graph_ms(refresh_vjp)
         r_call = statistics.median(event_times(refresh, 10))
-        rp_call = statistics.median(event_times(replay, 5))
+        rv_call = statistics.median(event_times(refresh_vjp, 100))
     phase("timing", f"{name} refresh substep {r_dev:.3f} ms device (one "
-          f"CUDA graph), {r_call:.3f} ms per call; refresh replay (forward "
-          f"+ autograd) {rp_dev:.3f} ms device (one CUDA graph), "
-          f"{rp_call:.3f} ms per call | {card}")
-    return r_call, rp_call
+          f"CUDA graph), {r_call:.3f} ms per call; refresh VJP (K2, dH "
+          f"added, K3) {rv_dev:.3f} ms device (one CUDA graph), "
+          f"{rv_call:.3f} ms per call | {card}")
+    return r_call, rv_call
 
 
 def cloth_scene(dim=60, cell=0.2):
@@ -1642,11 +1695,10 @@ def check_backwards(envs_, s1, acts, gen, card):
     the remat env run in float64 (the float32 remat gradient as the plain
     path); then per pass, the simulator's forward + backward alone
     (sim_grad): device ms (one CUDA graph of the call), ms per call, peak
-    memory and K1's and K2's launches per call ("pallas" runs lb's
+    memory and K1's, K2's and K3's launches per call ("pallas" runs lb's
     simulator, so it is not timed again). Returns {pass: (largest
     per-env error against float64, device ms, per-call ms, peak GB,
     launches)} and hold's summaries."""
-    from diffrl_tpu_torch.sim import substep_kernels as sk
     from diffrl_tpu_torch.testing import env_errors
 
     w = torch.randn((acts.shape[0], envs_["lb"].num_obs), generator=gen,
@@ -1670,17 +1722,17 @@ def check_backwards(envs_, s1, acts, gen, card):
         wq = torch.randn(s1.joint_q.shape, generator=gen, device=acts.device)
         wqd = torch.randn(s1.joint_qd.shape, generator=gen,
                           device=acts.device)
-        n0 = (sk.substep_forward.launches, sk.substep_vjp.launches)
+        n0 = launch_counts()
         sim_grad(env, s1, ja, ma, wq, wqd)
-        launches = (sk.substep_forward.launches - n0[0],
-                    sk.substep_vjp.launches - n0[1])
+        launches = launches_since(n0)
         if b == "pallas":
             # DiffEnv.simulate runs the same code for "pallas" as for "lb":
             # its gradient is held above, its times are lb's
             out[b] = (per_env, *out["lb"][1:4], launches)
             phase("backward", f"Ant E={E} sim_backward 'pallas': the "
-                  f"simulator of 'lb' (times as there), K1 and K2 launches "
-                  f"per step {launches}; the env step's gradient against "
+                  f"simulator of 'lb' (times as there), K1, K2 and K3 "
+                  f"launches per step {launches}; the env step's gradient "
+                  f"against "
                   f"float64: largest per-env error {per_env:.3e} | {card}")
             continue
         torch.cuda.synchronize()
@@ -1692,7 +1744,7 @@ def check_backwards(envs_, s1, acts, gen, card):
         phase("backward", f"Ant E={E} sim_backward {b!r}: one env step's "
               f"forward + backward of the simulator {dev_ms:.3f} ms device "
               f"(one CUDA graph), {call_ms:.3f} ms per call, peak "
-              f"{gb:.3f} GB, K1 and K2 launches per step {launches}; the "
+              f"{gb:.3f} GB, K1, K2 and K3 launches per step {launches}; the "
               f"env step's gradient against float64: largest per-env "
               f"error {per_env:.3e} | {card}")
     return out, summaries
@@ -1735,7 +1787,6 @@ def multi_rank(label, rank, world, port, out):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from diffrl_tpu_torch.parallel import mesh as mesh_lib
-    from diffrl_tpu_torch.sim import substep_kernels as sk
 
     rank, world = int(rank), int(world)
     mesh_lib.init_distributed(f"localhost:{port}", world, rank,
@@ -1744,7 +1795,7 @@ def multi_rank(label, rank, world, port, out):
     cfg, _ = trainer_cfg(label, multi_gpu=True, max_epochs=1)
     trainer = make_trainer(label, cfg, "cuda")
     torch.cuda.synchronize()
-    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    reset_launches()
     t = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
@@ -1752,7 +1803,7 @@ def multi_rank(label, rank, world, port, out):
     torch.save(dict(
         stats={k: v[0][2] for k, v in trainer.scalars.items()},
         params=flat_params(trainer).cpu(), seconds=seconds,
-        launches=(sk.substep_forward.launches, sk.substep_vjp.launches),
+        launches=launch_counts(),
         device=str(trainer.device), envs=trainer.env.num_envs), out)
     torch.distributed.destroy_process_group()
     shutil.rmtree(cfg["params"]["general"]["logdir"], ignore_errors=True)
@@ -1825,10 +1876,9 @@ def check_multi(records, card):
     the one card, each rank half the envs, against the train phase's
     one-process first epoch; (b) SHAC Ant with multi_gpu at world size 1 on
     NCCL in this process, two epochs, against the same first epoch, with
-    the host syncs of its second epoch. Returns {path: (K1, K2) launches}
-    (per rank)."""
+    the host syncs of its second epoch. Returns {path: (K1, K2, K3)
+    launches} (per rank)."""
     from diffrl_tpu_torch.parallel import mesh as mesh_lib
-    from diffrl_tpu_torch.sim import substep_kernels as sk
 
     launches = {}
     for label in MULTI:
@@ -1852,7 +1902,7 @@ def check_multi(records, card):
               f"{records[label][0]['s']:.3f}); ranks bit for bit equal; "
               f"{values} vs one process, max relative {stat_rel:.3e} "
               f"(bound {stat_bound}), parameters after the epoch relative "
-              f"{par_rel:.3e} in the 2-norm (bound {par_bound}); K1, K2 "
+              f"{par_rel:.3e} in the 2-norm (bound {par_bound}); K1, K2, K3 "
               f"launches per rank {[tuple(r['launches']) for r in recs]}; "
               f"{time.perf_counter() - t0:.1f} s with the processes' start "
               f"| {card}")
@@ -1871,18 +1921,17 @@ def check_multi(records, card):
 
         def recorded():
             torch.cuda.synchronize()
-            n = (sk.substep_forward.launches, sk.substep_vjp.launches)
+            n = launch_counts()
             t = time.perf_counter()
             out, syncs = host_syncs(inner)
             torch.cuda.synchronize()
             recs.append(dict(s=time.perf_counter() - t, syncs=syncs,
-                             launches=(sk.substep_forward.launches - n[0],
-                                       sk.substep_vjp.launches - n[1]),
+                             launches=launches_since(n),
                              params=flat_params(trainer).cpu()))
             return out
 
         trainer.train_epoch = recorded
-        sk.substep_forward.launches = sk.substep_vjp.launches = 0
+        reset_launches()
         trainer.train()
         recs[0]["stats"] = {"actor_loss": trainer.scalars["actor_loss"][0][2]}
         stat_rel, par_rel = against_one_process(label, recs[:1],
@@ -1989,19 +2038,19 @@ def check_profile(trainer, card):
     """The profile phase: one SHAC Ant epoch (train_epoch) under
     utils.profiling.trace() on the card; the top 15 device ops by time
     (profiling.summarize over the trace's device events), K1's and K2's
-    kernels found among them by name with their rank, and the device-busy
+    kernels found among them by name with their rank and launches, and
+    the device-busy
     share of the traced window. Returns (busy share, rows, launches)."""
-    from diffrl_tpu_torch.sim import substep_kernels as sk
     from diffrl_tpu_torch.utils import profiling
 
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     torch.cuda.synchronize()
-    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with profiling.trace(log_dir, device=trainer.device):
         trainer.train_epoch()
     traced_s = time.perf_counter() - t0
-    launches = (sk.substep_forward.launches, sk.substep_vjp.launches)
+    launches = launch_counts()
     size = sum(os.path.getsize(os.path.join(log_dir, f))
                for f in os.listdir(log_dir))
     t0 = time.perf_counter()
@@ -2013,10 +2062,11 @@ def check_profile(trainer, card):
     if launches != TRAINERS["SHAC Ant"]["launches"]:
         raise RuntimeError(f"profile: launches {launches}")
     found = {}
-    for k in ("substep_forward_kernel", "substep_vjp_kernel"):
+    for n, kname in enumerate(KERNELS):
+        k = f"{kname}_kernel"
         hits = [(i, r) for i, r in enumerate(rows) if k in r[2]]
         if len(hits) != 1 or hits[0][1][1] != TRAINERS["SHAC Ant"][
-                "launches"][0]:
+                "launches"][n]:
             raise RuntimeError(f"profile: {k} in the trace's device ops: "
                                f"{hits}")
         found[k] = hits[0]
@@ -2038,9 +2088,9 @@ def check_profile(trainer, card):
 def check_render(env, act_fn, steps, card):
     """The render phase: ``steps`` deterministic env steps of the main
     phase's policy on its env from a reset, env 0 recorded into a .usda
-    stage and an HTML viewer; the frame counts held. Returns K1 launches."""
+    stage and an HTML viewer; the frame counts held. Returns the (K1, K2,
+    K3) launches."""
     from diffrl_tpu_torch.render import UsdRenderer
-    from diffrl_tpu_torch.sim import substep_kernels as sk
     from diffrl_tpu_torch.sim.model import State
     from diffrl_tpu_torch.viewer import HtmlViewer
 
@@ -2049,7 +2099,7 @@ def check_render(env, act_fn, steps, card):
     html = HtmlViewer(env.model, os.path.join(tmp, "ant.html"))
     state = env.reset()
     torch.cuda.synchronize()
-    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
         for i in range(steps):
@@ -2058,7 +2108,7 @@ def check_render(env, act_fn, steps, card):
             frame = State(joint_q=state.joint_q[0])
             usd.update(frame, (i + 1) * env.dt)
             html.update(frame, (i + 1) * env.dt)
-    launches = sk.substep_forward.launches
+    launches = launch_counts()
     text = open(usd.save()).read()
     data = open(html.save()).read()
     render_s = time.perf_counter() - t0
@@ -2069,12 +2119,13 @@ def check_render(env, act_fn, steps, card):
     if frames != steps or len(n_html) != steps:
         raise RuntimeError(f"render: {frames} USD frames and {len(n_html)} "
                            f"HTML frames, expected {steps}")
-    if launches != steps * (MM - 1) or sk.substep_vjp.launches:
-        raise RuntimeError(f"render: K1 launched {launches} times")
+    if launches != (steps * (MM - 1), 0, 0):
+        raise RuntimeError(f"render: (K1, K2, K3) launched {launches} "
+                           f"times")
     phase("render", f"Ant E={env.num_envs}: {steps} policy steps, env 0 into "
           f"a .usda ({len(text)} B, {frames} frames of {len(usd._bodies)} "
           f"bodies) and an HTML viewer ({len(data)} B, {len(n_html)} frames)"
-          f" in {render_s:.2f} s; K1 launches {launches} | {card}")
+          f" in {render_s:.2f} s; K1 launches {launches[0]} | {card}")
     return launches
 
 
@@ -2226,30 +2277,31 @@ def main() -> int:
                          episode_length=EVAL_STEPS, MM_caching_frequency=MM,
                          device=dev)
     torch.cuda.synchronize()
-    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     mean_rew, mean_disc, mean_len = batched_eval(
         eval_env, policy_act_fn(actor, obs_rms, deterministic=True),
         num_games=E, gamma=0.99, chunk=EVAL_STEPS)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = sk.substep_forward.launches
+    launches = launch_counts()
     if not all(math.isfinite(x) for x in (mean_rew, mean_disc, mean_len)):
         raise RuntimeError(f"non-finite rollout result {mean_rew} "
                            f"{mean_disc} {mean_len}")
-    if launches != EVAL_STEPS * (MM - 1) or sk.substep_vjp.launches:
-        raise RuntimeError(f"the rollout path launched substep_forward "
-                           f"{launches} times (expected "
-                           f"{EVAL_STEPS * (MM - 1)}) and substep_vjp "
-                           f"{sk.substep_vjp.launches} (expected 0)")
+    if launches != (EVAL_STEPS * (MM - 1), 0, 0):
+        raise RuntimeError(f"the rollout path launched (substep_forward, "
+                           f"substep_vjp, mass_matrix_vjp) {launches} "
+                           f"times, expected "
+                           f"{(EVAL_STEPS * (MM - 1), 0, 0)}")
     phase("main", f"batched_eval Ant E={E} {EVAL_STEPS} steps "
           f"deterministic: {eval_s:.3f} s, {E * EVAL_STEPS / eval_s:.1f} "
           f"env-steps/s, mean reward {mean_rew:.4f}, mean length "
-          f"{mean_len:.2f}, substep_forward launches {launches} | {card}")
+          f"{mean_len:.2f}, substep_forward launches {launches[0]} | "
+          f"{card}")
     # the rollout's policy again from a reset, env 0 rendered
-    paths = {"render": (check_render(
+    paths = {"render": check_render(
         eval_env, policy_act_fn(actor, obs_rms, deterministic=True),
-        EVAL_STEPS, card), 0)}
+        EVAL_STEPS, card)}
 
     # 7. the training paths, each path's counts read alone, and one more
     # epoch of some split into its phases
@@ -2316,7 +2368,7 @@ def main() -> int:
         fwd_ms, bwd_ms, critic_ms = splits[f"SHAC {name}"].values()
         blocks = TRAIN_STEPS * spec["substeps"] // spec["mm"]
         n_win = blocks * (spec["mm"] - 1)
-        (r_call, rp_call), (f_call, v_call) = refresh_call[name], k_call[name]
+        (r_call, rv_call), (f_call, v_call) = refresh_call[name], k_call[name]
         phase("timing", f"one {name} training epoch (E={E}, {TRAIN_STEPS} "
               f"steps, {spec['substeps']} substeps, mm {spec['mm']}), host "
               f"waiting after each phase: window forward {fwd_ms:.1f} ms "
@@ -2324,9 +2376,9 @@ def main() -> int:
               f"{n_win * f_call:.1f} ms; refreshes {blocks} x {r_call:.3f} "
               f"ms per call = {blocks * r_call:.1f} ms), backward + actor "
               f"step {bwd_ms:.1f} ms (K2 {n_win} launches x {v_call:.3f} ms "
-              f"per call = {n_win * v_call:.1f} ms; refresh replays "
-              f"{blocks} x {rp_call:.3f} ms per call = "
-              f"{blocks * rp_call:.1f} ms), critic {critic_ms:.1f} ms | "
+              f"per call = {n_win * v_call:.1f} ms; refresh VJPs "
+              f"{blocks} x {rv_call:.3f} ms per call = "
+              f"{blocks * rv_call:.1f} ms), critic {critic_ms:.1f} ms | "
               f"{card}")
 
     # bench.py-style random-action env-steps/s
@@ -2355,7 +2407,8 @@ def main() -> int:
     phase("total", f"{time.perf_counter() - t_start:.1f} s")
 
     # each path's launches over its whole run
-    runs = {label: [sum(r["launches"][i] for r in recs) for i in (0, 1)]
+    runs = {label: [sum(r["launches"][i] for r in recs)
+                    for i in range(len(KERNELS))]
             for label, recs in records.items()}
     kernels = []
     for name in MODELS:
@@ -2366,9 +2419,7 @@ def main() -> int:
                 "model": name,
                 "route": "cuda",
                 "source": f"diffrl_tpu_torch/csrc/{kname}.cu",
-                "replaces": "diffrl_tpu/sim/pallas_substep.py:"
-                            + ("243" if kname == "substep_forward"
-                               else "298"),
+                "replaces": REPLACES[kname],
                 "launches": runs[f"SHAC {name}"][i],
                 "launches_by_path": {
                     **{label: runs[label][i]
@@ -2378,8 +2429,8 @@ def main() -> int:
                         for b in BACKWARDS} if name == "Ant" else {}),
                     **({p: int(v[i]) for p, v in paths.items()}
                        if name == "Ant" else {})},
-                "max_abs_err": checks[name]["err_fwd" if i == 0
-                                            else "err_vjp"],
+                "max_abs_err": checks[name][
+                    ("err_fwd", "err_vjp", "err_mass")[i]],
                 **times[name][kname],
                 "library_ms": None,
                 "threads_per_env": tpe,

@@ -21,14 +21,18 @@ link left to right through padded tables, in the order of the sequential
 gather whose indices repeat (a parent's children, a link's dofs, contacts
 and segment ends), which autograd would otherwise scatter with atomics.
 
-``substep_lb`` is the plain PyTorch version of the cached-substep kernel
-and ``substep_vjp_lb`` that of its adjoint kernel (sim/substep_kernels.py);
-``simulate_batched_lb`` sends its cached substeps, forward and reverse, to
-those kernels' wrappers, which launch the kernels on CUDA tensors and run
-the plain versions on CPU tensors. Its reverse pass is the reference's
-replay (the refresh substeps are replayed under autograd), or with
+``substep_lb`` is the plain PyTorch version of the cached-substep kernel,
+``substep_vjp_lb`` that of its adjoint kernel and ``mass_matrix_vjp_lb``
+that of the mass-matrix adjoint kernel (sim/substep_kernels.py);
+``simulate_batched_lb`` sends its cached substeps, forward and reverse, and
+its refresh substeps' reverse to those kernels' wrappers, which launch the
+kernels on CUDA tensors and run the plain versions on CPU tensors. Its
+reverse pass is the reference's (states and factors saved, nothing
+differentiated through the forward), with each refresh substep's VJP taken
+in closed form by the two adjoint kernels instead of by a replay, or with
 ``reverse="residual"`` autograd through the saved substeps: each cached
-substep an autograd node of the two kernels (``_CachedSubstep``).
+substep an autograd node of the two forward and adjoint kernels
+(``_CachedSubstep``), each refresh substep through its plain code.
 """
 
 from __future__ import annotations
@@ -987,9 +991,8 @@ def _chol_inverse_em(A):
     return torch.einsum("kiE,kjE->ijE", Linv, Linv)
 
 
-def _mass_matrix_em(plan: _Plan, X_sm, S_chunks):
-    """(H, Hinv) env-minor [D, D, E] in canonical dof order via link-batched
-    CRBA. Hinv inverts H + diag(armature)."""
+def _mass_matrix_h(plan: _Plan, X_sm, S_chunks):
+    """H env-minor [D, D, E] in canonical dof order via link-batched CRBA."""
     E = X_sm.shape[-1]
     # per-link space-frame 6x6 inertia, columns via 6 factored matvecs
     basis = torch.eye(6, dtype=X_sm.dtype, device=X_sm.device).reshape(
@@ -1016,7 +1019,14 @@ def _mass_matrix_em(plan: _Plan, X_sm, S_chunks):
 
     # chunk order -> canonical on both axes
     inv = plan.inv_dof_perm_t
-    H = H[inv][:, inv]
+    return H[inv][:, inv]
+
+
+def _mass_matrix_em(plan: _Plan, X_sm, S_chunks):
+    """(H, Hinv) env-minor [D, D, E] in canonical dof order: the CRBA build
+    (_mass_matrix_h), then Hinv, the inverse of H + diag(armature), from
+    H's value alone."""
+    H = _mass_matrix_h(plan, X_sm, S_chunks)
     D = H.shape[0]
     eye = torch.eye(D, dtype=H.dtype, device=H.device)[:, :, None]
     reg = H.detach() + eye * plan.armature[:, None, :]
@@ -1088,6 +1098,25 @@ def substep_vjp_lb(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv,
     return dq, dqd, dja, (grads[4] if ma is not None else None), dH
 
 
+def mass_matrix_vjp_lb(model: Model, q, gH):
+    """VJP of the mass matrix H(q) alone: the plain PyTorch version of the
+    mass-matrix adjoint kernel (autograd of the CRBA build from q: fk, the
+    joint frames and motion subspaces, _mass_matrix_h).
+
+    q [C, E], gH [D, D, E] the cotangent of H (canonical order). Returns
+    dq [C, E]. H depends on q alone, so this and substep_vjp_lb at the same
+    (q, qd, joint_act, muscle_act, H, Hinv) make the refresh substep's VJP:
+    refresh_substep_lb is substep_lb on the (H, Hinv) that it builds."""
+    plan = _plan_for(model, q.device, q.dtype)
+    with torch.enable_grad():
+        leaf = q.detach().requires_grad_()
+        X_sc, X_sm = _fk(plan, leaf)
+        S_chunks, _ = _motion_subspaces(plan, leaf, X_sc)
+        H = _mass_matrix_h(plan, X_sm, S_chunks)
+        (dq,) = torch.autograd.grad(H, leaf, gH, allow_unused=True)
+    return torch.zeros_like(q) if dq is None else dq
+
+
 # --------------------------------------------------------------------------
 # whole-batch simulate with the replay reverse pass
 # --------------------------------------------------------------------------
@@ -1123,10 +1152,12 @@ class _SimulateReplay(torch.autograd.Function):
     every cached substep and (q0, qd0, H, Hinv) per block; the backward
     walks the blocks from last to first, runs each cached substep's VJP
     (the adjoint kernel's wrapper) in reverse while dH accumulates, then
-    replays the block's refresh substep under autograd with cotangents on
-    (q1, qd1, H). The saved states go through save_for_backward, so autograd
-    frees them after the backward unless the graph is retained, and a
-    retained graph can be differentiated again."""
+    takes the block's refresh substep's VJP with cotangents on (q1, qd1, H)
+    without replaying it: the adjoint kernel once more at (q0, qd0, H,
+    Hinv), then the mass-matrix adjoint kernel's wrapper (mass_matrix_vjp)
+    on H's whole cotangent. The saved states go through save_for_backward,
+    so autograd frees them after the backward unless the graph is retained,
+    and a retained graph can be differentiated again."""
 
     @staticmethod
     def forward(ctx, model, h, nblocks, mm, q, qd, ja, ma):
@@ -1142,7 +1173,7 @@ class _SimulateReplay(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     @traced("sim.replay")
     def backward(ctx, gq, gqd):
-        from .substep_kernels import substep_vjp
+        from .substep_kernels import mass_matrix_vjp, substep_vjp
 
         model, h, mm = ctx.model, ctx.h, ctx.mm
         ja, ma, *flat = ctx.saved_tensors
@@ -1163,19 +1194,18 @@ class _SimulateReplay(torch.autograd.Function):
                     gH += dH
                     if gma is not None:
                         gma += dma
-            with span("sim.replay_refresh"), torch.enable_grad():
-                leaves = [t.detach().requires_grad_() for t in (q0, qd0, ja)]
-                if ma is not None:
-                    leaves.append(ma.detach().requires_grad_())
-                q1, qd1, H1, _ = refresh_substep_lb(
-                    model, leaves[0], leaves[1], leaves[2],
-                    leaves[3] if ma is not None else None, h)
-                grads = torch.autograd.grad((q1, qd1, H1), leaves,
-                                            (gq, gqd, gH))
-            gq, gqd = grads[0].contiguous(), grads[1].contiguous()
-            gja += grads[2]
-            if gma is not None:
-                gma += grads[3]
+            # the refresh substep is the cached substep on the (H, Hinv) it
+            # builds, and H depends on q0 alone: its VJP is the adjoint
+            # kernel's at the block's start plus the mass matrix's adjoint
+            # with all of H's cotangent
+            with span("sim.replay_refresh"):
+                gq, gqd, dja, dma, dH = substep_vjp(
+                    model, q0, qd0, ja, ma, h, H, Hinv, gq, gqd)
+                gH += dH
+                gq = mass_matrix_vjp(model, q0, gH, gq)
+                gja += dja
+                if gma is not None:
+                    gma += dma
         return None, None, None, None, gq, gqd, gja, gma
 
 

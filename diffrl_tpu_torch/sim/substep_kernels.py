@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the cached articulation substep and its
-VJP (counterparts of diffrl_tpu/sim/pallas_substep.py).
+VJP (counterparts of diffrl_tpu/sim/pallas_substep.py), and of the mass
+matrix's VJP.
 
 ``substep_forward`` wraps ``diffrl_tpu_torch/csrc/substep_forward.cu``,
 which replaces the TPU kernel ``substep_forward_batched``: one cached
@@ -9,15 +10,20 @@ intermediates in shared memory. ``substep_vjp`` wraps
 that substep with the frozen-factor convention, written by hand as an
 adjoint sweep. On a CPU tensor each wrapper runs its kernel's plain
 PyTorch version (``articulation_lb.substep_lb`` and ``substep_vjp_lb``); on
-a CUDA tensor it launches the kernel or raises. ``substep_forward.launches``
-and ``substep_vjp.launches`` count the kernel launches.
+a CUDA tensor it launches the kernel or raises. ``mass_matrix_vjp`` wraps
+``csrc/mass_matrix_vjp.cu``, the VJP of the refresh substep's mass matrix
+H(q), which the reverse pass adds to the adjoint kernel's at the refresh
+substep's input (so that no refresh substep is replayed); its plain
+version is ``articulation_lb.mass_matrix_vjp_lb``. The wrappers'
+``launches`` attributes count the kernel launches.
 
-Both kernels are specialized to one model topology and share its tables:
+The kernels are specialized to one model topology and share its tables:
 sizes, the team size, the level spans, per-link and muscle tables go into a
 generated header (built at first use by ``_build.py``), the float constants
 into one packed device buffer. They cover every joint type (free, ball,
 revolute, prismatic, fixed), ground contacts and muscle-tendon units: K1
-takes the muscle activations [M, E], and K2 returns their cotangent.
+takes the muscle activations [M, E], and K2 returns their cotangent (the
+mass matrix reads neither contacts nor muscles).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .articulation_lb import _plan_for, substep_lb, substep_vjp_lb
+from .articulation_lb import (_plan_for, mass_matrix_vjp_lb, substep_lb,
+                             substep_vjp_lb)
 from .model import (JOINT_BALL, JOINT_FIXED, JOINT_FREE, JOINT_PRISMATIC,
                     JOINT_REVOLUTE, Model)
 
@@ -48,10 +55,10 @@ _SMEM_PER_BLOCK = 232448   # shared memory one block may take on sm_90
 
 @dataclass(frozen=True)
 class SubstepKernel:
-    """One built kernel library (forward or adjoint) for one model on one
-    device."""
+    """One built kernel library for one model on one device."""
 
-    name: str                 # "substep_forward" or "substep_vjp"
+    name: str                 # "substep_forward", "substep_vjp" or
+                              # "mass_matrix_vjp"
     built: _build.BuiltLibrary
     consts: torch.Tensor      # packed constant buffer, on the device
     coord_count: int
@@ -61,28 +68,30 @@ class SubstepKernel:
 
 @dataclass(frozen=True)
 class TeamLayout:
-    """How both kernels spread one model's envs over the card's threads."""
+    """How the kernels spread one model's envs over the card's threads."""
 
     threads_per_env: int      # T, the lanes of one env's team
     envs_per_block: int
     block_threads: int
     forward_words: int        # floats of shared memory per env in K1
     vjp_words: int            # ... in K2
+    mass_words: int           # ... in the mass matrix's adjoint (K3)
     const_words: int          # the constants up to the muscle points, once
                               # per block
 
     def smem_bytes(self, name: str) -> int:
         """Dynamic shared memory per block of kernel ``name``."""
-        words = self.forward_words if name == "substep_forward" \
-            else self.vjp_words
+        words = {"substep_forward": self.forward_words,
+                 "substep_vjp": self.vjp_words,
+                 "mass_matrix_vjp": self.mass_words}[name]
         return 4 * (self.envs_per_block * words + self.const_words)
 
 
 def team_layout(model: Model) -> TeamLayout:
-    """The team size and the per-env shared-memory slots of both kernels.
+    """The team size and the per-env shared-memory slots of the kernels.
 
     T is the smallest power of two that is at least the widest level of the
-    tree and at least 8 (at most 32, one warp), doubled while the adjoint
+    tree and at least 8 (at most 32, one warp), doubled while an adjoint
     kernel's block would not fit the card's shared memory: every link of a
     level has its own lane in the sweeps, and at the main path's 4096 envs
     the card holds at least 1,024 warps. Ant, Humanoid, Hopper and Cheetah
@@ -97,8 +106,9 @@ def team_layout(model: Model) -> TeamLayout:
     per SM either way, and 4096 envs make 512 blocks, 4 waves, at T = 16
     against 256, 2 waves, at T = 8. Hopper's 6 dofs once gave T = 4, which
     leaves 3.9 warps per SM at 4096 envs. A slot holds the fields that
-    ``csrc/substep_forward.cuh`` (fw::) and ``csrc/substep_vjp.cuh`` (bw::)
-    lay out, rounded up to an odd count of floats so that the lanes of a
+    ``csrc/substep_forward.cuh`` (fw::), ``csrc/substep_vjp.cuh`` (bw::)
+    and ``csrc/mass_matrix_vjp.cuh`` (mm::) lay out, rounded up to an odd
+    count of floats so that the lanes of a
     warp reading one field of several envs hit different banks; the
     headers check these counts at compile time. The motion subspace takes 6
     floats per column (``subspace_columns``). Muscles add nothing to the
@@ -115,21 +125,24 @@ def team_layout(model: Model) -> TeamLayout:
     widest = max((e - s for s, e in plan.levels), default=1)
     fwd = C + 4 * D + D * D + 25 * L + 6 * NS + 6 * K
     vjp = fwd + 2 * C + 5 * D + 44 * L + 6 * NS + 13 * K
+    mass = 2 * C + D * D + 24 * D + 28 * L
     consts = L * _LINK_STRIDE + 3 + K * _CONTACT_STRIDE
     # the int tables' static shared memory (csrc/substep_forward.cuh Tables)
     nchild = sum(1 for p in topo.joint_parent if p >= 0)
     tables = 4 * (7 * L + 2 * max(K, 1) + max(nchild, 1) + 2
                   + len(plan.levels) + 1)
+    # and the mass matrix's adjoint's (csrc/mass_matrix_vjp.cuh MassTables)
+    tables += 8 * L + 4 * max(D, 1) + 4 * (max(D, 1) % 2)
     T = 1
     while T < 32 and (T < max(widest, _MIN_TEAM) or 4 * (
-            _BLOCK_THREADS // T * (vjp | 1) + consts) + tables
+            _BLOCK_THREADS // T * (max(vjp, mass) | 1) + consts) + tables
             > _SMEM_PER_BLOCK):
         T *= 2
     return TeamLayout(threads_per_env=T,
                       envs_per_block=_BLOCK_THREADS // T,
                       block_threads=_BLOCK_THREADS,
                       forward_words=fwd | 1, vjp_words=vjp | 1,
-                      const_words=consts)
+                      mass_words=mass | 1, const_words=consts)
 
 
 def _link_columns(joint_types) -> np.ndarray:
@@ -157,8 +170,9 @@ def kernel_tables(model: Model):
     (descending rows), contacts (ascending contact order) and first
     motion-subspace column, the muscle segments (the plan's, between
     waypoints on different links, in muscle order) with each link's
-    segment ends in the order the plain version sums them, and the team
-    layout of ``team_layout``. The constants end with each segment's two
+    segment ends in the order the plain version sums them, each link's
+    ancestors and each dof's link, and the team layout of
+    ``team_layout``. The constants end with each segment's two
     points, which the kernels read from global memory.
     """
     topo = model.topology
@@ -218,6 +232,12 @@ def kernel_tables(model: Model):
         for r in range(L)]
     muscle_segs = np.searchsorted(plan.seg_m, np.arange(M + 1))
     layout = team_layout(model)
+    # the mass matrix's adjoint: each link's ancestors-or-self as a bit mask
+    # of rows, and each canonical dof's row
+    anc = [sum(1 << a for a in range(L) if plan.subtree[a, r])
+           for r in range(L)]
+    dof_row = np.empty(topo.dof_count, np.int64)
+    dof_row[plan.dof_perm] = plan.dof_row
 
     header = "\n".join([
         "// generated by diffrl_tpu_torch/sim/substep_kernels.py",
@@ -259,6 +279,9 @@ def kernel_tables(model: Model):
         f"#define DRL_BLOCK_THREADS {layout.block_threads}",
         f"#define DRL_FWD_ENV_WORDS {layout.forward_words}",
         f"#define DRL_VJP_ENV_WORDS {layout.vjp_words}",
+        f"#define DRL_MASS_ENV_WORDS {layout.mass_words}",
+        f"#define DRL_ANC {table(anc)}",
+        f"#define DRL_DOF_ROW {table(dof_row)}",
         "",
     ])
     return header, consts
@@ -266,9 +289,9 @@ def kernel_tables(model: Model):
 
 def kernel_source(model: Model, name: str = "substep_forward"
                   ) -> _build.KernelSource:
-    """The library ``name`` ("substep_forward" or "substep_vjp") for
-    ``model``: both kernels share the generated topology header and the
-    packed constant buffer."""
+    """The library ``name`` ("substep_forward", "substep_vjp" or
+    "mass_matrix_vjp") for ``model``: the kernels share the generated
+    topology header and the packed constant buffer."""
     if name not in _POINTER_ARGS:
         raise ValueError(f"no kernel named {name!r}")
     header, _ = kernel_tables(model)
@@ -277,11 +300,14 @@ def kernel_source(model: Model, name: str = "substep_forward"
         headers={"substep_topology.h": header})
 
 
-# pointer arguments of each library's C launch function, before (E, dt,
-# stream): substep_forward (q, qd, joint_act, ma, hinv, consts, q_out,
-# qd_out), substep_vjp (q, qd, joint_act, ma, hinv, gq, gqd, consts, dq, dqd,
-# djoint_act, dma, dh); ma and dma are null without muscles
-_POINTER_ARGS = {"substep_forward": 8, "substep_vjp": 13}
+# pointer arguments of each library's C launch function, before E, the
+# substep's dt (the substep kernels only) and the stream: substep_forward
+# (q, qd, joint_act, ma, hinv, consts, q_out, qd_out), substep_vjp (q, qd,
+# joint_act, ma, hinv, gq, gqd, consts, dq, dqd, djoint_act, dma, dh);
+# ma and dma are null without muscles; mass_matrix_vjp (q, gh, dq_in,
+# consts, dq_out)
+_POINTER_ARGS = {"substep_forward": 8, "substep_vjp": 13,
+                 "mass_matrix_vjp": 5}
 
 # one built kernel per (Model object, kernel, device); a Model is immutable
 # and hashed by identity
@@ -306,7 +332,8 @@ def _prepare(name: str, model: Model, device,
     lib = built.lib
     launch = getattr(lib, f"drl_{name}")
     launch.argtypes = [ctypes.c_void_p] * _POINTER_ARGS[name] + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] + ([ctypes.c_float] if name.startswith("substep")
+                         else []) + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     count = getattr(lib, f"drl_{name}_const_count")
     count.argtypes = []
@@ -482,6 +509,35 @@ def substep_vjp(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv,
 substep_vjp.launches = 0
 
 
+def mass_matrix_vjp(model: Model, q, gH, dq):
+    """dq + (dH/dq)^T gH for the whole batch, env-minor: the VJP of the
+    mass matrix H(q) that the refresh substep builds, added to ``dq``.
+
+    q, dq [C, E]; gH [D, D, E] the cotangent of H (canonical order). Returns
+    a new [C, E] tensor. CPU tensors run the plain version
+    (mass_matrix_vjp_lb); CUDA tensors launch the kernel.
+    """
+    if q.device.type == "cpu":
+        return dq + mass_matrix_vjp_lb(model, q, gH)
+    k = _prepare("mass_matrix_vjp", model, q.device, None)
+    C, D, E = k.coord_count, k.dof_count, q.shape[-1]
+    for name, t, shape in (("q", q, (C, E)), ("gH", gH, (D, D, E)),
+                           ("dq", dq, (C, E))):
+        _check("mass_matrix_vjp", name, t, shape, q.device)
+    out = torch.empty_like(dq)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = k.built.lib.drl_mass_matrix_vjp(
+        q.data_ptr(), gH.data_ptr(), dq.data_ptr(), k.consts.data_ptr(),
+        out.data_ptr(), int(E), stream)
+    if err:
+        raise RuntimeError(f"mass_matrix_vjp launch failed: cudaError {err}")
+    mass_matrix_vjp.launches += 1
+    return out
+
+
+mass_matrix_vjp.launches = 0
+
+
 def substep_forward_bytes(model: Model, E: int) -> int:
     """Bytes one launch must move: each input read once (q, qd, joint_act,
     the muscle activations, Hinv and the constant buffer), each output
@@ -637,3 +693,59 @@ def substep_vjp_flops(model: Model, E: int, n_active: int) -> int:
     n += 3 * D * D                                # lam = Hinv adj_qdd, dH
     return (substep_forward_flops(model, E) + n * E
             + n_active * _CONTACT_ADJ)
+
+
+def mass_matrix_vjp_bytes(model: Model, E: int) -> int:
+    """Bytes one launch of the mass matrix's adjoint must move: q, the
+    cotangent of H, the dq it adds to and the constant buffer read once, dq
+    written once."""
+    C, D = model.coord_count, model.dof_count
+    _, consts = kernel_tables(model)
+    return 4 * (E * (3 * C + D * D) + consts.size)
+
+
+# flops of csrc/mass_matrix_vjp.cuh's primitives: one gram matvec T^T Im T x
+# (tinv, twist_xform, the inertia, the exact transpose), and the cotangent
+# of ti in <g, T^T Im T x> (twist_xform and the inertia again, the
+# transpose's two qrot_inv adjoints and its cross, the inertia's transpose,
+# and twist_xform's adjoint in ti alone)
+_GRAM = _TINV + _TWIST + 18 + (2 * _QROT + _CROSS + 3)               # 232
+_ADJ_GRAM = (_TWIST + 18 + _CROSS + 3 + 2 * (_ADJ_QROT + 4) + 3
+             + _ADJ_CROSS + 18 + _ADJ_CROSS + 2 * _ADJ_QROT_Q)        # 501
+
+
+def mass_matrix_vjp_flops(model: Model, E: int) -> int:
+    """Floating-point operations of one launch of the mass matrix's
+    adjoint, counted primitive by primitive from the kernel source: per
+    (link, dof of an ancestor or of the link) pair the composite column's
+    gram matvec, its transpose on the column's cotangent and the link
+    frame's adjoint; per ordered pair of dofs on one line of ancestry the
+    entries' cotangents; per link fk, its frames and columns and their
+    adjoints. As substep_vjp_flops, the adjoints taken of constants are not
+    counted."""
+    topo = model.topology
+    plan = _plan_for(model, "cpu")
+    L = topo.link_count
+    # (dof b, link j in the subtree of b's link) and (dof a, dof b of a link
+    # in the subtree of a's link)
+    link_pairs = int(plan.subtree[plan.dof_row].sum())
+    dof_pairs = int(plan.anc_pair.sum())
+    n = link_pairs * (2 * (_GRAM + 6) + _ADJ_GRAM) + dof_pairs * 26
+    for link in range(L):
+        t = topo.joint_type[link]
+        root = topo.joint_parent[link] < 0
+        cols = _SUBSPACE_COLS[t]
+        col = _QROT + (0 if t == JOINT_PRISMATIC else _CROSS)
+        n += 4 * _TMUL + {JOINT_REVOLUTE: 6, JOINT_PRISMATIC: 3}.get(t, 0)
+        n += cols * col                                   # S from X_sj
+        n += _TINV + _ADJ_TINV + _ADJ_TMUL_T              # X_sm -> X_sc
+        if not root:
+            n += 7 + _TMUL + _ADJ_TMUL                    # child sum, fk
+            if cols:
+                n += _TMUL + _ADJ_TMUL_T + cols * (
+                    col - _QROT + _ADJ_QROT_Q
+                    + (0 if t == JOINT_PRISMATIC else _QROT))
+        if t != JOINT_FIXED:
+            n += _ADJ_TMUL_U + {JOINT_REVOLUTE: 10, JOINT_PRISMATIC: 6,
+                                JOINT_BALL: 4}.get(t, 7)
+    return n * E

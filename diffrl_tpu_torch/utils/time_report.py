@@ -19,10 +19,11 @@ recorded span holds:
 - its epoch: the trainer's ``iter_count``, given to a root span (the
   trainers' ``*.epoch`` and ``*.stats``) and inherited by its children;
 - ``counts``: the events counted while it was the innermost open span of
-  its thread, and the launches of K1 and K2 between its start and its end
-  (``k1.launches`` and ``k2.launches``, read from the kernel wrappers'
-  ``launches`` attributes in ``sim/substep_kernels``, which count CUDA
-  launches and not the CPU's plain path).
+  its thread, and the launches of K1, K2 and K3 between its start and its
+  end (``k1.launches``, ``k2.launches`` and ``k3.launches``, read from the
+  kernel wrappers' ``launches`` attributes in ``sim/substep_kernels``:
+  ``substep_forward``, ``substep_vjp`` and ``mass_matrix_vjp``, which count
+  CUDA launches and not the CPU's plain path).
 
 Stacks are per thread. A span opened on a thread with no open span takes
 as parent the latest-started span open on any thread: the one open where
@@ -171,8 +172,9 @@ _OFF = _Off()
 def _launches():
     k = sys.modules.get(_KERNELS)
     if k is None:
-        return 0, 0
-    return k.substep_forward.launches, k.substep_vjp.launches
+        return 0, 0, 0
+    return (k.substep_forward.launches, k.substep_vjp.launches,
+            k.mass_matrix_vjp.launches)
 
 
 def _latest_open() -> Optional[Span]:
@@ -208,9 +210,8 @@ class _Recording:
     def __exit__(self, *exc):
         s = self.span
         s.end_ns = time.time_ns()
-        k1, k2 = _launches()
-        s.counts["k1.launches"] = k1 - self.k0[0]
-        s.counts["k2.launches"] = k2 - self.k0[1]
+        for i, n in enumerate(_launches()):
+            s.counts[f"k{i + 1}.launches"] = n - self.k0[i]
         self.stack.pop()
         if self.syncs is not None:
             self.syncs.off()

@@ -1,7 +1,7 @@
-"""The substep kernels' CUDA sources compiled for the host with g++, so the
-CPU tests check their arithmetic and lane-to-work map where no GPU is
-present (tests/test_torch_substep.py, test_torch_grad.py and
-test_torch_host_kernels.py).
+"""The kernels' CUDA sources compiled for the host with g++, so the CPU
+tests check their arithmetic and lane-to-work map where no GPU is present
+(tests/test_torch_substep.py, test_torch_grad.py,
+test_torch_host_kernels.py and test_torch_refresh_vjp.py).
 
 The shim defines the CUDA qualifiers and syncs away and
 ``DRL_FOR_EACH_THREAD(t)`` as a loop over the block's threads, so every
@@ -82,14 +82,30 @@ extern "C" void run(const float* q, const float* qd, const float* ja,
   }
 }
 """,
+    "mass_matrix_vjp": """
+#include "mass_matrix_vjp.cuh"
+namespace drl {
+float drl_smem[kEnvsPerBlock * kMassEnvWords + kConstCount];
 }
-# inputs (q, qd, joint_act, hinv[, gq, gqd]); outputs shaped like the first
-# two or four inputs
-_N_IN = {"substep_forward": 4, "substep_vjp": 6}
-_N_OUT = {"substep_forward": 2, "substep_vjp": 4}
+extern "C" int const_count() { return drl::kConstCount; }
+extern "C" void run(const float* q, const float* gh, const float* dq_in,
+                    const float* consts, float* dq_out, int E) {
+  blockDim.x = drl::kBlockThreads;
+  for (int b = 0; b * drl::kEnvsPerBlock < E; ++b) {
+    blockIdx.x = b;
+    drl::mass_matrix_vjp_kernel(q, gh, dq_in, consts, dq_out, E);
+  }
+}
+""",
+}
+# inputs (q, qd, joint_act, hinv[, gq, gqd]) or (q, gh, dq); outputs
+# shaped like the first two or four inputs, or like q
+_N_IN = {"substep_forward": 4, "substep_vjp": 6, "mass_matrix_vjp": 3}
+_N_OUT = {"substep_forward": 2, "substep_vjp": 4, "mass_matrix_vjp": 1}
 # pointer arguments of run(): the inputs, ma, the constants, the outputs
-# and (the adjoint) dma
-_N_PTR = {"substep_forward": 8, "substep_vjp": 13}
+# and (the adjoint) dma; the mass matrix's adjoint: the inputs, the
+# constants, the output
+_N_PTR = {"substep_forward": 8, "substep_vjp": 13, "mass_matrix_vjp": 5}
 
 
 class HostKernel:
@@ -97,7 +113,8 @@ class HostKernel:
     float32 numpy inputs (q, qd, joint_act, hinv[, gq, gqd]) and, for a
     model with muscles, ``ma`` [M, E]; returns the outputs as numpy arrays:
     (q', qd'), or (dq, dqd, djoint_act, dH) followed by dma when ``ma`` is
-    given."""
+    given. The mass matrix's adjoint takes (q, gH, dq) and ``dt=None`` and
+    returns (dq + (dH/dq)^T gH,)."""
 
     def __init__(self, name, so, consts):
         self.name, self.so, self.consts = name, so, consts
@@ -113,6 +130,9 @@ class HostKernel:
         def ptr(a):
             return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
+        if self.name == "mass_matrix_vjp":
+            self.so.run(*map(ptr, (*ins, self.consts, *outs)), E)
+            return outs
         if self.name == "substep_forward":
             args = (*ins[:3], ma, ins[3], self.consts, *outs)
         else:
@@ -123,8 +143,9 @@ class HostKernel:
 
 
 def build_host_kernel(model, name, tmp):
-    """Compiles kernel ``name`` ("substep_forward" or "substep_vjp") for
-    ``model`` with g++ in directory ``tmp``; skips without g++."""
+    """Compiles kernel ``name`` ("substep_forward", "substep_vjp" or
+    "mass_matrix_vjp") for ``model`` with g++ in directory ``tmp``; skips
+    without g++."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     header, consts = sk.kernel_tables(model)
@@ -138,7 +159,7 @@ def build_host_kernel(model, name, tmp):
          "-o", str(lib), str(tmp / "harness.cpp")],
         check=True, capture_output=True, text=True, timeout=300)
     so = ctypes.CDLL(str(lib))
-    so.run.argtypes = [ctypes.c_void_p] * _N_PTR[name] + [ctypes.c_int,
-                                                          ctypes.c_float]
+    so.run.argtypes = [ctypes.c_void_p] * _N_PTR[name] + [ctypes.c_int] + (
+        [ctypes.c_float] if name.startswith("substep") else [])
     assert so.const_count() == consts.size
     return HostKernel(name, so, consts)

@@ -16,8 +16,13 @@ Against the port's "lb" on Ant (E = 4) and on TinySNU
 (tests/_torch_urdf_snu.py: ball joints, 55 muscles, ground contacts; 8
 substeps, mm 4, so that a cached substep's cotangent crosses a refresh;
 its "lb" gradient is held against JAX's in tests/test_torch_tiny_snu.py):
-on the CPU every pass runs the same plain stages, so the gradients are
-equal bit for bit.
+on the CPU "pallas" runs "lb"'s plain stages and "lb_ad" "manual"'s, so
+each pair is equal bit for bit. "manual" and "lb_ad" replay each refresh
+substep under autograd, where "lb" takes its VJP in closed form (the
+adjoint kernel's and the mass-matrix adjoint kernel's plain versions), so
+the two sum the same terms in another order: "lb" is held to "manual" run
+in float64 by the float64 rule (testing.check_against_f64, rtol 0), with
+"manual" in float32 as the plain version whose error it may not pass.
 """
 
 import os
@@ -33,6 +38,7 @@ import diffrl_tpu_torch.config as tconfig
 import diffrl_tpu_torch.envs as tenvs
 from diffrl_tpu_torch.algorithms import BPTT, SHAC
 from diffrl_tpu_torch.envs.base import EnvState as TState
+from diffrl_tpu_torch.testing import check_against_f64
 
 HERE = os.path.dirname(__file__)
 sys.path.insert(0, HERE)
@@ -47,7 +53,9 @@ def test_manual_env_step_matches_jax():
     check_env_step("CartPoleSwingUp", backward="manual")
 
 
-def _port_grad(name, backward, mm):
+def _port_grad(name, backward, mm, dtype=torch.float32):
+    """The gradient of one env step, its inputs from a float32 state
+    (widened to ``dtype``)."""
     kw = dict(num_envs=E, seed=0, stochastic_init=True, device="cpu",
               MM_caching_frequency=mm, sim_backward=backward)
     env = TTinySNU(**kw) if name == "TinySNU" else tenvs.make(name, **kw)
@@ -58,24 +66,29 @@ def _port_grad(name, backward, mm):
             s, *_ = env.step(s, torch.zeros((E, env.num_acts)))
     gen = torch.Generator().manual_seed(0)
     acts = (torch.rand((E, env.num_acts), generator=gen) * 2 - 1
-            ).requires_grad_()
-    q = s.joint_q.clone().requires_grad_()
-    qd = s.joint_qd.clone().requires_grad_()
-    _, obs, rew, _, info = env.step(TState(q, qd, s.actions, s.progress),
-                                    acts)
-    w = torch.randn(obs.shape, generator=gen)
+            ).to(dtype).requires_grad_()
+    q = s.joint_q.to(dtype).requires_grad_()
+    qd = s.joint_qd.to(dtype).requires_grad_()
+    _, obs, rew, _, info = env.step(
+        TState(q, qd, s.actions.to(dtype), s.progress), acts)
+    w = torch.randn(obs.shape, generator=gen).to(dtype)
     return torch.autograd.grad(
         (info["obs_before_reset"] * w).sum() + rew.sum(), (acts, q, qd))
 
 
 @pytest.mark.parametrize("name,mm", [("Ant", 16), ("TinySNU", 4)])
 def test_backwards_equal_lb(name, mm):
+    labels = ("actions", "joint_q", "joint_qd")
     want = _port_grad(name, "lb", mm)
-    for backward in ("manual", "lb_ad", "pallas"):
+    replay = _port_grad(name, "manual", mm)
+    for backward, same in (("lb_ad", replay), ("pallas", want)):
         got = _port_grad(name, backward, mm)
-        for lab, a, b in zip(("actions", "joint_q", "joint_qd"), got, want):
+        for lab, a, b in zip(labels, got, same):
             assert float(b.abs().max()) > 0.0
             assert torch.equal(a, b), f"{name} {backward} d{lab}"
+    exact = _port_grad(name, "manual", mm, torch.float64)
+    for lab, a, b, x in zip(labels, want, replay, exact):
+        check_against_f64(f"{name} lb d{lab}", a.T, b.T, x.T, 0.0, 0.0)
 
 
 def test_env_takes_pallas_and_the_config_default():

@@ -1,4 +1,5 @@
-"""The cached-substep CUDA kernels against their plain versions, on the GPU.
+"""The cached-substep CUDA kernels and the mass matrix's adjoint kernel
+against their plain versions, on the GPU.
 
 These tests need a CUDA device and nvcc; without them they skip. This file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -31,12 +32,22 @@ on Humanoid with its floor: a q', qd' or dH entry there inherits the
 float32 error of a 27-term sum whose terms are about 100 times it), with
 the occupancy and spill checks.
 
+The mass matrix's adjoint kernel (K3) is held on all six models at E =
+4096 (Ant also at 1000 and 1) on a settled state, with a random cotangent
+of H and a random dq to add to, against its plain version and float64 by
+the same rule (check_kernel, rtol 2e-4, atol 1e-5, each model's floor); it
+counts one launch a call, two launches give the same bits, and it keeps at
+least 4 warps resident per SM without spills.
+
 The plain path (refresh, cached substep and both VJPs) gives the same bits
 twice on the same inputs at E = 4096 on Ant, Humanoid and SNU Humanoid
 (testing.check_repeatable); a kernel check that fails on an injected off
-entry leaves a witness that replays; and a PPO and a SAC epoch on Ant
-launch the forward kernel once per cached substep and the adjoint kernel
-never.
+entry leaves a witness that replays; a SHAC epoch on Ant (64 envs x 32
+steps of 16 substeps, the mass matrix refreshed once a step) launches the
+forward kernel on each cached substep, the adjoint kernel on each substep
+(the refresh's VJP takes one too) and the mass matrix's adjoint once a
+step; and a PPO and a SAC epoch on Ant launch the forward kernel once per
+cached substep and neither adjoint kernel.
 """
 
 import os
@@ -150,7 +161,8 @@ def test_vjp_kernel_matches_plain(cuda, E):
               sep="\n")
 
 
-@pytest.mark.parametrize("name", ["substep_forward", "substep_vjp"])
+@pytest.mark.parametrize("name", ["substep_forward", "substep_vjp",
+                                  "mass_matrix_vjp"])
 def test_kernel_occupancy(cuda, name):
     """At the main path's 4096 envs each kernel keeps at least 4 warps
     resident per SM (the card's occupancy query and the grid), with the
@@ -167,6 +179,36 @@ def test_kernel_occupancy(cuda, name):
     assert k.built.spill_store_bytes == k.built.spill_load_bytes == 0
     _, warps = a.resident(4096)
     assert warps >= 4.0
+
+
+@pytest.mark.parametrize("name,E", [
+    ("Ant", 4096), ("Ant", 1000), ("Ant", 1), ("Humanoid", 4096),
+    ("Hopper", 4096), ("Cheetah", 4096), ("CartPoleSwingUp", 4096),
+    ("SNUHumanoid", 4096)])
+def test_mass_matrix_vjp_kernel_matches_plain(cuda, name, E):
+    mm, settle = {"Ant": (16, 14), **_MJCF, **_URDF_SNU}[name]
+    env = envs.make(name, num_envs=E, stochastic_init=True,
+                    MM_caching_frequency=mm, device=cuda)
+    s = _settled(env, settle)
+    q = s.joint_q.T.contiguous()
+    D = env.model.dof_count
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    gH = torch.randn((D, D, E), generator=g, device=cuda)
+    dq = torch.randn(q.shape, generator=g, device=cuda)
+    n = sk.mass_matrix_vjp.launches
+    got = sk.mass_matrix_vjp(env.model, q, gH, dq)
+    assert sk.mass_matrix_vjp.launches == n + 1
+    again = sk.mass_matrix_vjp(env.model, q, gH, dq)
+    want = dq + lb.mass_matrix_vjp_lb(env.model, q, gH)
+    exact = dq.double() + lb.mass_matrix_vjp_lb(env.model, q.double(),
+                                                 gH.double())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    check_kernel(f"{name} dq", got, want, exact, 2e-4, 1e-5, f64_floor(name))
+    k = sk._prepare("mass_matrix_vjp", env.model, cuda, None)
+    assert k.built.spill_store_bytes == k.built.spill_load_bytes == 0
+    assert sk.kernel_attributes(k).resident(4096)[1] >= 4.0
 
 
 def test_vjp_kernel_rejects_bad_inputs(cuda):
@@ -348,11 +390,29 @@ def _trainer_cfg(algo, logdir, **config):
     return cfg
 
 
+def test_shac_epoch_launches(cuda, tmp_path):
+    """One SHAC epoch on Ant, 64 envs x 32 steps of 16 substeps with the
+    mass matrix refreshed every 16: K1 on the 15 cached substeps of each
+    step (480), K2 on every substep (512: the refresh's VJP is one K2 at its
+    input) and K3 once a step (32)."""
+    from diffrl_tpu_torch.algorithms import SHAC
+
+    cfg = _trainer_cfg("shac", tmp_path, num_actors=64, steps_num=32,
+                       max_epochs=1, save_interval=0)
+    trainer = SHAC(cfg, device=cuda)
+    sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    sk.mass_matrix_vjp.launches = 0
+    trainer.train_epoch()
+    torch.cuda.synchronize()
+    assert (sk.substep_forward.launches, sk.substep_vjp.launches,
+            sk.mass_matrix_vjp.launches) == (480, 512, 32)
+
+
 @pytest.mark.parametrize("algo", ["ppo", "sac"])
 def test_model_free_epochs_never_launch_the_adjoint(cuda, algo, tmp_path):
     """One PPO epoch and one SAC learning epoch on Ant (64 envs, 4 steps)
     step the env without gradients: the forward kernel runs on each of the
-    15 cached substeps of a step, the adjoint kernel never."""
+    15 cached substeps of a step, neither adjoint kernel ever."""
     from diffrl_tpu_torch.algorithms import PPO, SAC
 
     if algo == "ppo":
@@ -367,7 +427,8 @@ def test_model_free_epochs_never_launch_the_adjoint(cuda, algo, tmp_path):
         trainer = SAC(cfg, device=cuda)
         trainer.train_epoch(seed_phase=True)
     sk.substep_forward.launches = sk.substep_vjp.launches = 0
+    sk.mass_matrix_vjp.launches = 0
     trainer.train_epoch()
     torch.cuda.synchronize()
-    assert (sk.substep_forward.launches, sk.substep_vjp.launches) == (
-        4 * 15, 0)
+    assert (sk.substep_forward.launches, sk.substep_vjp.launches,
+            sk.mass_matrix_vjp.launches) == (4 * 15, 0, 0)

@@ -175,7 +175,8 @@ def test_a_tiny_epoch_records_its_span_tree(algo, tmp_path):
     assert {s.epoch for s in recs} == {5} and trainer.iter_count == 6
     assert {s.thread for s in recs} == {threading.get_ident()}
     for s in recs:
-        assert s.counts["k1.launches"] == s.counts["k2.launches"] == 0
+        assert s.counts["k1.launches"] == s.counts["k2.launches"] == \
+            s.counts["k3.launches"] == 0
         assert s.start_ns <= s.end_ns
     by_id = {s.id: s for s in recs}
     for s in recs:

@@ -13,9 +13,10 @@ prints, with the benchmark's own arithmetic (``benchmark/harness/spans.py``):
 - the card's idle time by the innermost span open at each gap's midpoint,
   the share in ``sim.*`` spans and the share that no span covers;
 - per span name: calls, host milliseconds in all and less their
-  children, the K1 and K2 launches they carry, the host syncs counted in
-  them; beside them the trace's counts of ``substep_forward_kernel`` and
-  ``substep_vjp_kernel``, and the epoch's syncs as
+  children, the K1, K2 and K3 launches they carry, the host syncs counted
+  in them; beside them the trace's counts of ``substep_forward_kernel``,
+  ``substep_vjp_kernel`` and ``mass_matrix_vjp_kernel``, and the epoch's
+  syncs as
   ``host.syncs_per_epoch`` reads them;
 - where the syncs happened (file and line of the call).
 
@@ -46,7 +47,7 @@ def _table(trace, recs):
             calls=len(mine), ms=S.total_ms(recs, name),
             self_ms=S.self_ms(recs, name),
             **{k: sum(r.count(f"{k}.launches") for r in mine)
-               for k in ("k1", "k2")},
+               for k in ("k1", "k2", "k3")},
             syncs=sum(r.count("host.syncs") for r in mine))
     return dict(
         idle_s=sum(idle.values()), busy_s=trace.busy_s,
@@ -58,7 +59,8 @@ def _table(trace, recs):
             trace, recs, lambda n: n is not None and n.startswith("sim.")),
         spans=rows, syncs_per_epoch=S.syncs(recs),
         trace_k1=len(trace.kernels("substep_forward_kernel")),
-        trace_k2=len(trace.kernels("substep_vjp_kernel")))
+        trace_k2=len(trace.kernels("substep_vjp_kernel")),
+        trace_k3=len(trace.kernels("mass_matrix_vjp_kernel")))
 
 
 def main(argv=None) -> int:
