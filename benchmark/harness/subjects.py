@@ -195,4 +195,5 @@ class ReferenceTrainer:
         if self._undo is not None:
             self._undo()
             self._undo = None
+        self.tr.env.close()
         self.tr = None

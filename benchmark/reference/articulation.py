@@ -13,15 +13,22 @@ runs in a fixed order (``_Fan``).
 
 Every substep runs in plain PyTorch: ``refresh_substep_lb`` builds and
 inverts the mass matrix, ``substep_lb`` reuses that factor (the cached
-substep, which the port runs in its kernel K1), and ``substep_vjp_lb`` is
-its VJP (the port's kernel K2) by autograd. ``simulate_batched_lb``'s
-reverse pass is the replay: the forward saves the states, the backward
-runs each cached substep's VJP in reverse and replays each refresh substep
-under autograd.
+substep, which the port runs in its kernel K1), ``substep_vjp_lb`` is its
+VJP (the port's kernel K2) by autograd, and ``refresh_vjp_lb`` replays the
+refresh substep under autograd. ``simulate_batched_lb``'s reverse pass is
+the replay: the forward saves the states, the backward runs each cached
+substep's VJP in reverse and replays each refresh substep under autograd.
+
+On a CUDA device ``simulate_batched_lb`` replays each of those four calls
+as a CUDA graph captured from the same functions (``_Graphed``): a
+call is some thousands of small ops, whose dispatch by the host, not their
+arithmetic, would set the reference's pace. The functions stay the
+definition, and the CPU runs them op by op.
 """
 
 from __future__ import annotations
 
+import types
 import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -987,6 +994,114 @@ def substep_vjp_lb(model: Model, q, qd, joint_act, muscle_act, dt, H, Hinv,
     return dq, dqd, dja, (grads[4] if ma is not None else None), dH
 
 
+def refresh_vjp_lb(model: Model, q, qd, joint_act, muscle_act, dt, gq, gqd,
+                   gH):
+    """VJP of one refresh substep, replayed under autograd: cotangents gq
+    [C, E], gqd [D, E], gH [D, D, E] of its outputs q', qd' and H (Hinv,
+    built from H.detach(), takes none). Returns (dq [C, E], dqd [D, E],
+    djoint_act [D, E], dmuscle_act [M, E] | None)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, qd, joint_act)]
+        ma = (muscle_act.detach().requires_grad_()
+              if muscle_act is not None else None)
+        q1, qd1, H1, _ = refresh_substep_lb(model, ins[0], ins[1], ins[2],
+                                            ma, dt)
+        leaves = ins + ([ma] if ma is not None else [])
+        grads = torch.autograd.grad((q1, qd1, H1), leaves, (gq, gqd, gH))
+    return grads[0], grads[1], grads[2], (grads[3] if ma is not None
+                                          else None)
+
+
+# --------------------------------------------------------------------------
+# the substep calls as CUDA graphs
+# --------------------------------------------------------------------------
+
+# The four calls op by op: the definition, and the path off CUDA.
+_EAGER = types.SimpleNamespace(refresh=refresh_substep_lb, cached=substep_lb,
+                               cached_vjp=substep_vjp_lb,
+                               refresh_vjp=refresh_vjp_lb)
+
+_WARMUP = 3
+
+
+class _Graphed:
+    """One substep function, captured as a CUDA graph at its first call and
+    replayed after: the host enqueues a few copies and one replay where it
+    would dispatch some thousands of ops. It takes the function's
+    arguments; each tensor is copied into a static buffer of its position,
+    unless the buffer already holds that very tensor (same object, same
+    version), so a block's H and Hinv and a step's actions are copied
+    once. Other arguments are constants of the graph (its key in
+    ``_substep_calls`` fixes them). The outputs are cloned out. The graph
+    warms up on a side stream, draws from the pool it is given, and holds
+    no reference to the model."""
+
+    def __init__(self, fn, pool):
+        self.fn, self.pool = fn, pool
+        self.graph = self.outs = None
+        self.static: List = []
+        self.held: List = []
+
+    def __call__(self, model, *args):
+        if self.graph is None:
+            self.static = [torch.empty(a.shape, dtype=a.dtype,
+                                       device=a.device)
+                           if torch.is_tensor(a) else a for a in args]
+            self.held = [None] * len(args)
+        for i, a in enumerate(args):
+            held = self.held[i]
+            if torch.is_tensor(a) and (held is None or held[0] is not a
+                                       or held[1] != a._version):
+                self.static[i].copy_(a)
+                self.held[i] = (a, a._version)
+        if self.graph is None:
+            self._capture(model)
+        self.graph.replay()
+        return tuple(None if o is None else o.clone() for o in self.outs)
+
+    def _capture(self, model):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP):
+                    self.fn(model, *self.static)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                self.outs = self.fn(model, *self.static)
+
+
+# One set of graphs per (Model object, key), as _PLANS keeps plans: a model
+# that goes frees its graphs; free_graphs frees them before.
+_GRAPHS: "weakref.WeakKeyDictionary[Model, Dict[tuple, object]]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _substep_calls(model: Model, x, ma, dt):
+    """The four substep calls for a batch like ``x`` (any [.., E] input)
+    and muscle activations ``ma``: graphed on CUDA, else the eager
+    functions."""
+    if not x.is_cuda:
+        return _EAGER
+    key = (x.device, x.dtype, x.shape[-1], dt,
+           None if ma is None else ma.shape[0],
+           torch.backends.cuda.matmul.allow_tf32)
+    per_model = _GRAPHS.setdefault(model, {})
+    calls = per_model.get(key)
+    if calls is None:
+        # the four graphs of a key share one memory pool
+        pool = torch.cuda.graph_pool_handle()
+        calls = per_model[key] = types.SimpleNamespace(**{
+            name: _Graphed(fn, pool) for name, fn in vars(_EAGER).items()})
+    return calls
+
+
+def free_graphs(model: Model):
+    """Drops the CUDA graphs of ``model``'s substeps and their memory."""
+    _GRAPHS.pop(model, None)
+
+
 # --------------------------------------------------------------------------
 # whole-batch simulate with the replay reverse pass
 # --------------------------------------------------------------------------
@@ -996,16 +1111,17 @@ def _simulate_forward(model, h, nblocks, mm, q, qd, ja, ma, save):
     """Blocks of one refresh and (mm - 1) cached substeps, env-minor. With
     ``save``, also returns per block (q0, qd0, [(q, qd) before each cached
     substep], H, Hinv), all the replay reverse pass needs."""
+    calls = _substep_calls(model, q, ma, h)
     blocks = []
     with torch.no_grad():
         for _ in range(nblocks):
             q0, qd0 = q, qd
-            q, qd, H, Hinv = refresh_substep_lb(model, q, qd, ja, ma, h)
+            q, qd, H, Hinv = calls.refresh(model, q, qd, ja, ma, h)
             states = []
             for _ in range(mm - 1):
                 if save:
                     states.append((q, qd))
-                q, qd = substep_lb(model, q, qd, ja, ma, h, H, Hinv)
+                q, qd = calls.cached(model, q, qd, ja, ma, h, H, Hinv)
             if save:
                 blocks.append((q0, qd0, states, H, Hinv))
     return q, qd, blocks
@@ -1038,6 +1154,7 @@ class _SimulateReplay(torch.autograd.Function):
     def backward(ctx, gq, gqd):
         model, h, mm = ctx.model, ctx.h, ctx.mm
         ja, ma, *flat = ctx.saved_tensors
+        calls = _substep_calls(model, ja, ma, h)
         per_block = 4 + 2 * (mm - 1)
         gq, gqd = gq.contiguous(), gqd.contiguous()
         gja = torch.zeros_like(ja)
@@ -1047,26 +1164,19 @@ class _SimulateReplay(torch.autograd.Function):
                                              (b + 1) * per_block]
             gH = torch.zeros_like(H)
             for i in reversed(range(mm - 1)):
-                gq, gqd, dja, dma, dH = substep_vjp_lb(
+                gq, gqd, dja, dma, dH = calls.cached_vjp(
                     model, states[2 * i], states[2 * i + 1], ja, ma, h, H,
                     Hinv, gq, gqd)
                 gja += dja
                 gH += dH
                 if gma is not None:
                     gma += dma
-            with torch.enable_grad():
-                leaves = [t.detach().requires_grad_() for t in (q0, qd0, ja)]
-                if ma is not None:
-                    leaves.append(ma.detach().requires_grad_())
-                q1, qd1, H1, _ = refresh_substep_lb(
-                    model, leaves[0], leaves[1], leaves[2],
-                    leaves[3] if ma is not None else None, h)
-                grads = torch.autograd.grad((q1, qd1, H1), leaves,
-                                            (gq, gqd, gH))
-            gq, gqd = grads[0].contiguous(), grads[1].contiguous()
-            gja += grads[2]
+            dq, dqd, dja, dma = calls.refresh_vjp(model, q0, qd0, ja, ma, h,
+                                                  gq, gqd, gH)
+            gq, gqd = dq.contiguous(), dqd.contiguous()
+            gja += dja
             if gma is not None:
-                gma += grads[3]
+                gma += dma
         return None, None, None, None, gq, gqd, gja, gma
 
 

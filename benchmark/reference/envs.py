@@ -5,23 +5,30 @@ the port's ``envs/base.py`` (the replay path only), ``envs/locomotion.py``,
 Every random draw is the port's: the same calls on a ``torch.Generator`` of
 the same device and seed, made in float32 and only then cast to ``dtype``,
 so that the reference sees the start states that the program draws.
+
+Another robot's reference copy is a file of its own: ``env_class(name)``
+finds an env class that ``ENVS`` lacks in ``ROBOTS_DIR/<name>.py``, which
+defines a class of that name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
 import os
+import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .articulation import simulate_batched_lb
+from .articulation import free_graphs, simulate_batched_lb
 from .mjcf import parse_mjcf
 from .model import ModelBuilder, np_quat_from_axis_angle
 
 _ASSETS = os.path.join(os.path.dirname(__file__), "assets")
+ROBOTS_DIR = os.path.join(os.path.dirname(__file__), "robots")
 _EPS = 1.0e-6
 
 
@@ -251,6 +258,10 @@ class LocomotionEnv:
         return (EnvState(q_new, qd_new, actions_new, progress_new), obs_out,
                 rew, done, info)
 
+    def close(self):
+        """Frees the simulator's CUDA graphs of this env's model."""
+        free_graphs(self.model)
+
 
 class Ant(LocomotionEnv):
     num_obs, num_acts = 37, 8
@@ -333,7 +344,27 @@ class Humanoid(LocomotionEnv):
 ENVS = {"AntEnv": Ant, "HumanoidEnv": Humanoid}
 
 
+def env_class(name):
+    """The reference env class ``name``: from ``ENVS``, else the class of
+    that name in the module ``ROBOTS_DIR/<name>.py`` (which imports what it
+    needs from ``benchmark.reference``). KeyError where neither has it."""
+    if name in ENVS:
+        return ENVS[name]
+    path = os.path.join(ROBOTS_DIR, name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no reference env {name!r}: not in ENVS, and no "
+                       f"{path}")
+    module_name = f"benchmark.reference.robots.{name}"
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
+    spec.loader.exec_module(module)
+    if not hasattr(module, name):
+        raise KeyError(f"{path} defines no class {name!r}")
+    return getattr(module, name)
+
+
 def model_of(name):
     """The model of env ``name`` (its class's build, no env state)."""
-    cls = ENVS[name]
+    cls = env_class(name)
     return cls.build_model(cls.__new__(cls))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .envs import ENVS, clip
+from .envs import clip, env_class
 from .nets import ActorCriticPPO, RunningMeanStd
 
 
@@ -40,7 +40,7 @@ class PpoReference:
         self.device, self.dtype = torch.device(device), dtype
         self.seed = params.get("general", {}).get("seed", 0)
         self.E, self.H = config["num_actors"], config.get("steps_num", 32)
-        self.env = ENVS[diff_env["name"]](
+        self.env = env_class(diff_env["name"])(
             self.E, self.seed, diff_env.get("episode_length", 1000),
             diff_env.get("stochastic_env", True),
             diff_env.get("MM_caching_frequency", 1), device, dtype)

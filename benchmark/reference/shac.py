@@ -14,7 +14,7 @@ import copy
 
 import torch
 
-from .envs import ENVS
+from .envs import env_class
 from .nets import ActorStochasticMLP, CriticMLP, RunningMeanStd
 
 
@@ -57,7 +57,7 @@ class ShacReference:
             raise ValueError("the reference covers obs_rms, not ret_rms")
         self.device, self.dtype = torch.device(device), dtype
         self.seed = params.get("general", {}).get("seed", 0)
-        self.env = ENVS[diff_env["name"]](
+        self.env = env_class(diff_env["name"])(
             config["num_actors"], self.seed,
             diff_env.get("episode_length", 250),
             diff_env.get("stochastic_env", True),
