@@ -9,6 +9,9 @@ CPU.
   ``torch.profiler.profile`` record the trainers' span trees with the
   right parents and epochs; every span's K1 and K2 launches read 0 (the
   CPU runs the plain path; the card's counts are checked on the card).
+- Humanoid: one tiny SHAC epoch on the MJCF Humanoid with its published
+  networks and one refresh every 48 substeps records one ``sim.refresh``
+  and one ``sim.cached`` span per env step, and logs finite losses.
 - Threads: a span opened on a thread with no open span takes as parent
   the span open where the thread's work was handed over (on the card
   autograd runs ``sim.replay`` on its device thread; on the CPU backward
@@ -186,6 +189,27 @@ def test_a_tiny_epoch_records_its_span_tree(algo, tmp_path):
     n = len(tr.spans())
     _epoch(trainer)                     # no profiler: nothing recorded
     assert len(tr.spans()) == n
+
+
+def test_a_tiny_humanoid_epoch_records_a_refresh_per_step(tmp_path):
+    with open(os.path.join(HERE, "..", "examples", "cfg", "shac",
+                           "humanoid.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["params"]["general"] = {"logdir": str(tmp_path), "seed": 0}
+    cfg["params"]["config"].update(num_actors=4, steps_num=2,
+                                   critic_iterations=2, num_batch=2,
+                                   save_interval=0)
+    assert cfg["params"]["diff_env"]["MM_caching_frequency"] == 48
+    trainer = SHAC(cfg, device="cpu")
+    assert trainer.env.sim_substeps == 48
+    recs = _recorded(lambda: _epoch(trainer))
+    names = [s.name for s in recs]
+    assert names.count("env.step") == names.count("sim.simulate") == 2
+    assert names.count("sim.refresh") == names.count("sim.cached") == 2
+    assert names.count("sim.replay") == names.count(
+        "sim.replay_refresh") == 2
+    for key in ("actor_loss", "value_loss"):
+        assert np.isfinite(trainer.scalars[key][-1][2]), key
 
 
 def test_a_thread_without_spans_takes_the_handing_over_span():
